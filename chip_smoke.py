@@ -9,17 +9,33 @@ Phases (each raises on failure; the script then exits non-zero):
    `multi_orb_slam_tpu_torch/csrc/`.
 2. Kernel vs plain, one phase per kernel, on random inputs at the shapes
    the main path gives it (640x480, 2 cameras, 8 levels, 1024 features per
-   camera): `fast_score` and `gather_patches` must be bit-equal to their
-   plain PyTorch versions; `window_match` must give equal distances, equal
+   camera, local-BA windows of 24 to 64 keyframe rows): `fast_score`,
+   `gather_patches` and `point_sums` must be bit-equal to their plain
+   PyTorch versions; `window_match` must give equal distances, equal
    indices wherever the best is unique, and the expected hand-made tie rows.
-   Kernel and plain version are timed with CUDA events after a warm-up.
-3. Main path: the bench's orbit scene (60 frames, 4000 textured squares,
-   640x480, the dual ~90-degree rig) through
+   Kernel and plain version are timed with CUDA events after a warm-up,
+   and beside them the one PyTorch call that computes the same function,
+   where there is one.  Each kernel's bound (the least time the card could
+   take: bytes over 3.35 TB/s or operations over 67 Top/s, the larger) is
+   computed from the phase's inputs.
+3. Tracking path: the first 20 frames of the bench's orbit scene (4000
+   textured squares, 640x480, the dual ~90-degree rig) through
    `Tracker(calib, cfg, pipelined=True, pipeline_depth=3)` with the default
-   `SlamConfig` and no mapping callback.  Every kernel's launch count is set
-   to 0 just before and read just after; the run fails unless 60/60 frames
-   track, ATE < 0.02 m, no pose is NaN and every kernel launched.
-4. A JSON line of per-kernel results, then the last line
+   `SlamConfig` and no mapping callback.
+4. Mapping path: all 60 orbit frames through the same tracker with
+   `kf_inserted_cb` running `run_mapping_stage` and `covis_kf_count` (the
+   next keyframe's window hint), as `bench.py` sets it.  Should the orbit
+   map fewer than 3 keyframes (no local BA, so no `point_sums` launch), the
+   160-frame circuit scene is run in its place.  The orbit maps 4, so the
+   fallback does not run today; if it did, it would fail its tracked-frames
+   check: at 2.5 degrees of rotation per frame neither this port nor the
+   reference package tracks all 160 circuit frames with mapping (see
+   `tools/circuit_parity.py`).
+   For each path every kernel's launch count is set to 0 just before and
+   read just after; a path fails unless every frame tracks, ATE < 0.02 m,
+   no pose or map point is NaN and every kernel of the path launched (the
+   mapping path: all four, and every keyframe mapped).
+5. A JSON line of per-kernel results, then the last line
    `{"ok": true, "device": {...}}`.
 
 Without a CUDA device the script exits 1 before printing any result.
@@ -35,13 +51,37 @@ import torch
 
 H, W, C = 480, 640, 2
 N_FRAMES = 60
+N_FRAMES_TRACKING_ONLY = 20
+N_FRAMES_CIRCUIT = 160
 ATE_LIMIT_M = 0.02
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate
+FP32_OPS_PER_S = 67e12      # H100 SXM float32 rate outside the tensor cores;
+                            # taken for the integer ALU work too
 REF = "multi_orb_slam_tpu/ops/pallas_kernels.py"
 KERNELS = {
     "fast_score": ("multi_orb_slam_tpu_torch/csrc/fast_score.cu", f"{REF}:87"),
     "gather_patches": ("multi_orb_slam_tpu_torch/csrc/gather_patches.cu", f"{REF}:376"),
     "window_match": ("multi_orb_slam_tpu_torch/csrc/window_match.cu", f"{REF}:228"),
+    "point_sums": ("multi_orb_slam_tpu_torch/csrc/point_sums.cu", f"{REF}:449"),
 }
+
+
+def bound(n_bytes, n_ops):
+    """(bound_ms, bound_by): the larger of bytes over the memory rate and
+    operations over the float32 rate."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / FP32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def report(name, err, ms, plain_ms, library_ms, n_bytes, n_ops):
+    bound_ms, bound_by = bound(n_bytes, n_ops)
+    lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
+    print(f"  kernel {ms:.4f} ms   plain {plain_ms:.4f} ms   library {lib}   "
+          f"bound {bound_ms:.5f} ms by {bound_by} "
+          f"({n_bytes / 1e6:.2f} MB, {n_ops / 1e6:.1f} Mop)")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms}
 
 
 def cuda_ms(fn, reps=20, warmup=3):
@@ -95,8 +135,11 @@ def phase_fast_score(dev, rng):
         raise AssertionError("fast_score kernel differs from its plain version")
     ms = cuda_ms(lambda: kernels.fast_score(canvas, extents))
     plain_ms = cuda_ms(lambda: kernels.fast_score_plain(canvas, extents))
-    print(f"  kernel {ms:.4f} ms   plain {plain_ms:.4f} ms")
-    return err, ms, plain_ms
+    # reads the live extent of each image, writes the whole canvas; per live
+    # pixel 16 differences, 16 arcs of 8 min + 8 max, and 49 to combine them
+    live = sum(h * w for h, w in extents)
+    return report("fast_score", err, ms, plain_ms, None,
+                  4 * live + 4 * canvas.numel(), 321 * live)
 
 
 def phase_gather_patches(dev, rng):
@@ -118,8 +161,16 @@ def phase_gather_patches(dev, rng):
         raise AssertionError("gather_patches kernel differs from its plain version")
     ms = cuda_ms(lambda: kernels.gather_patches(canvas, idx, side))
     plain_ms = cuda_ms(lambda: kernels.gather_patches_plain(canvas, idx, side))
-    print(f"  kernel {ms:.4f} ms   plain {plain_ms:.4f} ms")
-    return err, ms, plain_ms
+    # library form: one advanced-indexing call on ready-made index tensors
+    d = torch.arange(side, device=dev)
+    ib = idx[:, 0].long()[:, None, None]
+    iy = (idx[:, 1].long()[:, None] + d)[:, :, None]
+    ix = (idx[:, 2].long()[:, None] + d)[:, None, :]
+    library_ms = cuda_ms(lambda: canvas[ib, iy, ix])
+    # writes every patch once; reads as much, or the canvas if that is less
+    out_bytes = 4 * N * side * side
+    return report("gather_patches", err, ms, plain_ms, library_ms,
+                  out_bytes + min(out_bytes, 4 * canvas.numel()) + 4 * idx.numel(), 0)
 
 
 def phase_window_match(dev, rng):
@@ -168,8 +219,61 @@ def phase_window_match(dev, rng):
         raise AssertionError("window_match kernel differs from its plain version")
     ms = cuda_ms(lambda: kernels.window_match(*args))
     plain_ms = cuda_ms(lambda: kernels.window_match_plain(*args))
-    print(f"  kernel {ms:.4f} ms   plain {plain_ms:.4f} ms")
-    return err, ms, plain_ms
+    # every (query, feature) pair passes ~12 gate operations; only the
+    # pairs that pass them need the 256-bit distance (8 xor, 8 popcount,
+    # 8 adds) and the two compares of the running best and second
+    n_cand = int(kernels.window_match_candidates(*args[:5], *args[6:10]).sum())
+    n_bytes = sum(a.numel() * a.element_size() for a in args) + 4 * 4 * C * Q
+    print(f"  {n_cand} of {C * Q * F} pairs pass the gates")
+    return report("window_match", err, ms, plain_ms, None, n_bytes,
+                  12 * C * Q * F + 26 * n_cand)
+
+
+def point_sums_inputs(rng, LC, F, P, D, dev):
+    """Each row a random injection of F features into P points, the rest
+    -1 (as the reference's test builds it); the last row all -1."""
+    V = rng.randn(LC, F, D).astype(np.float32)
+    inv = np.full((LC, P), -1, np.int32)
+    for r in range(LC - 1):
+        inv[r, rng.choice(P, F, replace=False)] = rng.permutation(F)
+    return torch.from_numpy(V).to(dev), torch.from_numpy(inv).to(dev)
+
+
+def point_sums_library(V, inv):
+    """The library form: `torch.gather`, `where`, `sum(0)`."""
+    LC, F, D = V.shape
+    g = torch.gather(V, 1, inv.clamp(0, F - 1).long()[..., None].expand(LC, inv.shape[1], D))
+    g = torch.where((inv >= 0)[..., None], g, 0.0)
+    return g.sum(0), g
+
+
+def phase_point_sums(dev, rng):
+    from multi_orb_slam_tpu_torch.ops import kernels
+
+    out = None
+    # the local-BA re-layout at its smallest and largest window, then the
+    # reference kernel's design shape; the first is the one reported
+    for LC, F, P, D in ((48, 1024, 2048, 4), (128, 1024, 2048, 4), (48, 1024, 4096, 30)):
+        V, inv = point_sums_inputs(rng, LC, F, P, D, dev)
+        s_k, g_k = kernels.point_sums(V, inv)
+        s_p, g_p = kernels.point_sums_plain(V, inv)
+        s_l, g_l = point_sums_library(V, inv)
+        torch.cuda.synchronize()
+        err = max(float((g_k - g_p).abs().max()), float((s_k - s_p).abs().max()))
+        equal = bool(torch.equal(g_k, g_p) and torch.equal(s_k, s_p))
+        lib_err = float((s_k - s_l).abs().max())
+        print(f"point_sums LC={LC} F={F} P={P} D={D}: gathered and summed bit-equal "
+              f"{equal}, max |diff| {err}; last row empty {not bool(g_k[-1].any())}; "
+              f"summed vs library sum(0) max |diff| {lib_err:.2e}")
+        if not equal or bool(g_k[-1].any()) or not torch.equal(g_k, g_l):
+            raise AssertionError("point_sums kernel differs from its plain version")
+        ms = cuda_ms(lambda: kernels.point_sums(V, inv))
+        plain_ms = cuda_ms(lambda: kernels.point_sums_plain(V, inv))
+        library_ms = cuda_ms(lambda: point_sums_library(V, inv))
+        n_bytes = 4 * (V.numel() + inv.numel() + LC * P * D + P * D)
+        row = report("point_sums", err, ms, plain_ms, library_ms, n_bytes, LC * P * D)
+        out = out or row
+    return out
 
 
 def bench_rig(dev):
@@ -185,27 +289,63 @@ def bench_rig(dev):
         bf=torch.tensor(40.0, device=dev), width=W, height=H)
 
 
-def phase_main_path(dev):
-    from multi_orb_slam_tpu_torch.config import SlamConfig
-    from multi_orb_slam_tpu_torch.frontend import tracking
-    from multi_orb_slam_tpu_torch.geometry import align
+def render_scene(name, calib, dev):
+    """The bench's scenes, rendered with numpy: (frames on the card, poses_gt)."""
     from multi_orb_slam_tpu_torch.io import synthetic
-    from multi_orb_slam_tpu_torch.ops import kernels, orb
 
-    cfg = SlamConfig(n_cams=C, width=W, height=H, orb=orb.ORBConfig(n_features=1024))
-    calib = bench_rig(dev)
+    Kc, T_rc = calib.K[0].cpu().numpy(), calib.T_rc.cpu().numpy()
     t0 = time.perf_counter()
-    seq = synthetic.make_sequence(
-        n_frames=N_FRAMES, K=calib.K[0].cpu().numpy(), T_rc=calib.T_rc.cpu().numpy(),
-        height=H, width=W, n_points=4000)
+    if name == "orbit":
+        seq = synthetic.make_sequence(n_frames=N_FRAMES, K=Kc, T_rc=T_rc,
+                                      height=H, width=W, n_points=4000)
+        grays, depths, poses = seq.grays, seq.depths, seq.poses_gt
+    else:
+        world = synthetic.make_box_world(seed=3, n_points=5000, box=(7.0, 4.0, 7.0))
+        poses = synthetic.circuit_trajectory(N_FRAMES_CIRCUIT, radius=2.2, laps=1.1)
+        grays, depths = [], []
+        for T in poses:
+            views = [synthetic.render_rgbd(world, Kc, T_rc[c] @ T, H, W) for c in range(C)]
+            grays.append(np.stack([v[0] for v in views]))
+            depths.append(np.stack([v[1] for v in views]))
     frames = [(torch.from_numpy(np.asarray(g, np.float32)).to(dev),
                torch.from_numpy(np.asarray(d, np.float32)).to(dev))
-              for g, d in zip(seq.grays, seq.depths)]
+              for g, d in zip(grays, depths)]
     torch.cuda.synchronize()
-    print(f"orbit scene: {N_FRAMES} frames x {C} cameras at {W}x{H} rendered "
+    print(f"{name} scene: {len(frames)} frames x {C} cameras at {W}x{H} rendered "
           f"in {time.perf_counter() - t0:.1f} s")
+    return frames, np.asarray(poses, np.float64)
+
+
+def run_path(name, frames, poses_gt, calib, cfg, mapping):
+    """Drive the Tracker over `frames`, with or without the mapping
+    callback; returns (launch counts, keyframes mapped, local-BA solves)."""
+    from multi_orb_slam_tpu_torch.frontend import tracking
+    from multi_orb_slam_tpu_torch.geometry import align
+    from multi_orb_slam_tpu_torch.mapping import local_mapping
+    from multi_orb_slam_tpu_torch.ops import kernels
+    from multi_orb_slam_tpu_torch.optim import local_ba
 
     tracker = tracking.Tracker(calib, cfg, pipelined=True, pipeline_depth=3)
+    map_ms, covis_pending = [], [None]
+
+    def kf_cb(kf_slot):
+        # as bench.py sets it: the mapping stage, then the covisible count
+        # that the NEXT keyframe's stage takes as its window hint
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        hint = int(covis_pending[0]) if covis_pending[0] is not None else None
+        m = local_mapping.run_mapping_stage(tracker.map, kf_slot, tracker.frame_id,
+                                            calib, cfg, covis_hint=hint)
+        if cfg.ba_adaptive:
+            covis_pending[0] = local_mapping.covis_kf_count(m, kf_slot)
+        torch.cuda.synchronize()
+        map_ms.append((time.perf_counter() - t) * 1e3)
+        return m
+
+    if mapping:
+        tracker.kf_inserted_cb = kf_cb
+    windows0 = dict(local_mapping.STATS["ba_windows"])
+    ba0 = dict(local_ba.STATS)
     kernels.reset_launch_counts()
     times = []
     for g, d in frames:
@@ -218,31 +358,77 @@ def phase_main_path(dev):
     torch.cuda.synchronize()
     launches = dict(kernels.LAUNCHES)
 
+    n = len(frames)
     n_ok = sum(1 for _, _, _, lost in traj if not lost)
     poses = np.stack([T for _, _, T, _ in traj]).astype(np.float64)
-    finite = bool(np.isfinite(poses).all())
+    st = tracker.map
+    finite = bool(np.isfinite(poses).all()) and bool(
+        torch.isfinite(st.mp_pos[st.mp_valid]).all()) and bool(
+        torch.isfinite(st.kf_Tcw).all())
     est = torch.from_numpy(np.stack([np.linalg.inv(T)[:3, 3] for T in poses]))
-    gt = torch.from_numpy(np.stack([np.linalg.inv(T)[:3, 3]
-                                    for T in seq.poses_gt.astype(np.float64)]))
+    gt = torch.from_numpy(np.stack([np.linalg.inv(T)[:3, 3] for T in poses_gt[:n]]))
     ate = float(align.ate_rmse(est, gt))
     ms = np.asarray(times) * 1e3
-    print(f"main path: Tracker.process median {np.median(ms):.2f} ms/frame "
+    n_inserted = int(st.next_kf_id) - 1          # keyframes after the first
+    windows = {k: v - windows0.get(k, 0)
+               for k, v in local_mapping.STATS["ba_windows"].items() if v - windows0.get(k, 0)}
+    solves = local_ba.STATS["solves"] - ba0["solves"]
+    iters = local_ba.STATS["iterations"] - ba0["iterations"]
+    label = f"{name}-{n}" + (" with mapping" if mapping else " tracking only")
+    print(f"{label}: Tracker.process median {np.median(ms):.2f} ms/frame "
           f"(first frame {ms[0]:.2f} ms, max {ms.max():.2f} ms, "
-          f"median of frames 8-59 {np.median(ms[8:]):.2f} ms)")
-    print(f"  frames tracked {n_ok}/{N_FRAMES}, keyframes {int(tracker.map.n_kf)}, "
-          f"map points {int(tracker.map.n_mp)}, ATE {ate * 1e3:.3f} mm, "
-          f"poses finite {finite}")
-    print(f"  kernel launches in the main path: {launches}")
-    if n_ok != N_FRAMES:
-        raise AssertionError(f"only {n_ok}/{N_FRAMES} frames tracked")
+          f"median from frame 8 on {np.median(ms[8:]):.2f} ms, total {ms.sum() / 1e3:.2f} s)")
+    print(f"  frames tracked {n_ok}/{n}, keyframes {int(st.n_kf)} valid of "
+          f"{n_inserted + 1} inserted, map points {int(st.n_mp)}, ATE {ate * 1e3:.3f} mm, "
+          f"poses and points finite {finite}")
+    if mapping:
+        per_kf = np.asarray(map_ms) if map_ms else np.zeros(1)
+        print(f"  mapping stages {len(map_ms)}: median {np.median(per_kf):.2f} ms, "
+              f"max {per_kf.max():.2f} ms each; local-BA windows (free keyframes: "
+              f"solves) {windows}, point_sums rows {[4 * k for k in windows]}; "
+              f"LM iterations {iters} in {solves} solves "
+              f"({iters / max(solves, 1):.1f} per solve)")
+    print(f"  kernel launches: {launches}")
+    if n_ok != n:
+        raise AssertionError(f"{label}: only {n_ok}/{n} frames tracked")
     if not finite:
-        raise AssertionError("NaN or inf in a pose")
+        raise AssertionError(f"{label}: NaN or inf in a pose or a map point")
     if not ate < ATE_LIMIT_M:
-        raise AssertionError(f"ATE {ate:.4f} m >= {ATE_LIMIT_M} m")
-    missing = [k for k, v in launches.items() if v <= 0]
+        raise AssertionError(f"{label}: ATE {ate:.4f} m >= {ATE_LIMIT_M} m")
+    if mapping and len(map_ms) != n_inserted:
+        raise AssertionError(f"{label}: {n_inserted} keyframes inserted, {len(map_ms)} mapped")
+    return launches, len(map_ms), solves
+
+
+def phase_main_paths(dev):
+    """The tracking-only path, then this slice's path with mapping; returns
+    the launch counts of both."""
+    from multi_orb_slam_tpu_torch.config import SlamConfig
+    from multi_orb_slam_tpu_torch.ops import orb
+
+    cfg = SlamConfig(n_cams=C, width=W, height=H, orb=orb.ORBConfig(n_features=1024))
+    calib = bench_rig(dev)
+    frames, poses_gt = render_scene("orbit", calib, dev)
+    tracking, _, _ = run_path("orbit", frames[:N_FRAMES_TRACKING_ONLY], poses_gt,
+                              calib, cfg, mapping=False)
+    missing = [k for k in ("fast_score", "gather_patches", "window_match")
+               if tracking[k] <= 0]
     if missing:
-        raise AssertionError(f"main path never launched: {missing}")
-    return launches
+        raise AssertionError(f"tracking path never launched: {missing}")
+    mapped, n_mapped, solves = run_path("orbit", frames, poses_gt, calib, cfg, mapping=True)
+    if solves == 0:
+        print(f"orbit mapped {n_mapped} keyframes and never reached local BA: "
+              f"running the circuit scene in its place")
+        del frames
+        frames, poses_gt = render_scene("circuit", calib, dev)
+        mapped, n_mapped, solves = run_path("circuit", frames, poses_gt, calib, cfg,
+                                            mapping=True)
+    missing = [k for k, v in mapped.items() if v <= 0]
+    if missing or solves == 0 or mapped["point_sums"] != solves:
+        raise AssertionError(f"mapping path: never launched {missing}; "
+                             f"{solves} local-BA solves, {mapped['point_sums']} "
+                             f"point_sums launches")
+    return tracking, mapped
 
 
 def main():
@@ -257,14 +443,15 @@ def main():
         "fast_score": phase_fast_score(dev, rng),
         "gather_patches": phase_gather_patches(dev, rng),
         "window_match": phase_window_match(dev, rng),
+        "point_sums": phase_point_sums(dev, rng),
     }
-    launches = phase_main_path(dev)
+    tracking, mapped = phase_main_paths(dev)
     rows = []
-    for name, (err, ms, plain_ms) in results.items():
+    for name, res in results.items():
         source, replaces = KERNELS[name]
         rows.append({"name": name, "route": "cuda", "source": source,
-                     "replaces": replaces, "launches": launches[name],
-                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
+                     "replaces": replaces, "launches": mapped[name],
+                     "launches_tracking_only": tracking[name], **res})
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

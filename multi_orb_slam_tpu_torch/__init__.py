@@ -1,4 +1,4 @@
-"""Multi-camera ORB SLAM front end in PyTorch, with hand-written Hopper kernels.
+"""Multi-camera ORB SLAM tracking and mapping in PyTorch, with hand-written Hopper kernels.
 
 The PyTorch + CUDA counterpart of `multi_orb_slam_tpu` (the JAX reference
 package, which stays the numerical spec).  Sub-packages and modules carry the
@@ -10,6 +10,11 @@ same names as the reference's, so each counterpart is easy to find:
   inner loop is the `window_match` CUDA kernel
 - `optim/pose_opt.py`: motion-only bundle adjustment
 - `frontend/tracking.py`: the per-frame tracking state machine (`Tracker`)
+- `mapping/`: the map store (`map_state.py`) and the mapping stage run at
+  every keyframe (`local_mapping.run_mapping_stage`: map-point culling,
+  `triangulation.py`, `fusion.py`, local BA, keyframe culling)
+- `optim/local_ba.py`: windowed bundle adjustment with an explicit Schur
+  complement; its observation re-layout is the `point_sums` CUDA kernel
 
 Public functions keep the reference's layouts: `[C, F, ...]` feature arrays,
 `[K, C, F]` keyframe arrays, 4x4 world->camera `Tcw`.  Descriptors are held
@@ -29,3 +34,17 @@ import torch as _torch
 
 _torch.backends.cuda.matmul.allow_tf32 = False
 _torch.backends.cudnn.allow_tf32 = False
+
+
+def resolve_device(device=None) -> "_torch.device":
+    """The device an entry point that creates state runs on: the CUDA
+    device unless the caller names another (`device="cpu"`, as the CPU tests
+    do).  With `device=None` and no CUDA device this raises; nothing falls
+    back to the CPU unasked."""
+    if device is None:
+        if not _torch.cuda.is_available():
+            raise RuntimeError(
+                "multi_orb_slam_tpu_torch runs on a CUDA device by default and "
+                "none is available; pass device='cpu' to run on the CPU")
+        device = "cuda"
+    return _torch.device(device)

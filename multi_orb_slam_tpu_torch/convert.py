@@ -1,11 +1,13 @@
 """State carried between the JAX reference package and this port.
 
-`CameraParams`, `FrameData`, `MapState`, `LocalPoints`, `PoseObs` and
-`Features` have the same fields, in the same order, in both packages.
+`CameraParams`, `FrameData`, `MapState`, `LocalPoints`, `PoseObs`,
+`Features` and `BAProblem` have the same fields, in the same order, in both
+packages.
 `to_torch` turns a reference tuple (of jax or numpy arrays) into the port's
 tuple of tensors on a device; `to_numpy` turns a port tuple into a dict of
 numpy arrays that the reference's constructors take
-(`map_state.MapState(**to_numpy(state))`).
+(`map_state.MapState(**to_numpy(state))`,
+`local_ba.BAProblem(**to_numpy(prob))`).
 
 Descriptors are uint32 words in the reference and int32 words here: the
 conversion reinterprets the bits with `np.ndarray.view`, so it is
@@ -19,6 +21,8 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from . import resolve_device
 
 # fields holding descriptor words (uint32 in the reference, int32 here)
 DESC_FIELDS = frozenset({"desc", "kf_desc", "mp_desc", "mp_descbuf"})
@@ -34,7 +38,10 @@ def _field_to_torch(v, device):
 
 
 def to_torch(nt: NamedTuple, cls: type, device=None):
-    """Reference NamedTuple -> the port's `cls` with tensors on `device`."""
+    """Reference NamedTuple -> the port's `cls` with tensors on `device`
+    (the CUDA device when None, raising where there is none; `"cpu"` where
+    the caller asks for it)."""
+    device = resolve_device(device)
     return cls(*[_field_to_torch(getattr(nt, f), device) for f in cls._fields])
 
 

@@ -26,6 +26,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import resolve_device
 from ..config import SlamConfig, inv_sigma2_of_level
 from ..geometry import camera as cam_mod
 from ..geometry import se3
@@ -37,13 +38,6 @@ from . import frame as frame_mod
 
 def _neg1(t: torch.Tensor) -> torch.Tensor:
     return torch.full_like(t, -1)
-
-
-def _scatter_max_bool(M: int, idx: torch.Tensor, val: torch.Tensor) -> torch.Tensor:
-    """zeros(M, bool).at[idx].max(val)."""
-    out = torch.zeros(M, dtype=torch.int32, device=idx.device)
-    out.scatter_reduce_(0, idx.long(), val.to(torch.int32), "amax", include_self=True)
-    return out > 0
 
 
 def unproject_features(fr: frame_mod.FrameData, Tcw: torch.Tensor,
@@ -204,6 +198,47 @@ def insert_keyframe_impl(state: ms.MapState, fr: frame_mod.FrameData,
     return new_state, kf_mp_new
 
 
+def update_point_geometry(state: ms.MapState, cfg: SlamConfig) -> ms.MapState:
+    """Recompute mean viewing normal and scale-invariance range per point
+    (MapPoint::UpdateNormalAndDepth), over the whole map by scatter-adds.
+
+    Normals are taken from the rig-body centre of each observing keyframe;
+    the depth range is the mean over observations.  The float sums run in
+    another order than the reference's (and, on CUDA, in an order that
+    varies between launches), so the outputs agree to ~1e-5, not to bits.
+    """
+    K, C, F = state.kf_mp.shape
+    M = state.mp_pos.shape[0]
+    f32 = torch.float32
+    dev = state.mp_pos.device
+    obs = state.kf_mp.reshape(K, C * F)
+    valid = (obs >= 0) & state.kf_valid[:, None] & state.kf_feat_valid.reshape(K, C * F)
+    tgt = torch.where(valid, obs, torch.full_like(obs, M - 1)).long()
+    Ow = se3.camera_center(state.kf_Tcw)                     # [K, 3]
+    po = state.mp_pos[tgt] - Ow[:, None, :]
+    dist = torch.linalg.norm(po, dim=-1)
+    n = po / torch.clamp(dist[..., None], min=1e-9)
+    w = valid.to(f32)
+    min_d, max_d = ms.scale_range_from_obs(
+        dist, state.kf_level.reshape(K, C * F), cfg.scale_factor, cfg.n_levels)
+    # one scatter-add of [nx, ny, nz, 1, min_d, max_d] per observation
+    vals = torch.cat([n, torch.ones_like(dist)[..., None], min_d[..., None],
+                      max_d[..., None]], dim=-1) * w[..., None]
+    sums = torch.zeros((M, 6), dtype=f32, device=dev)
+    sums.index_add_(0, tgt.reshape(-1), vals.reshape(-1, 6))
+    cnt = sums[:, 3]
+    normal = sums[:, :3] / torch.clamp(cnt[:, None], min=1e-9)
+    normal = normal / torch.clamp(torch.linalg.norm(normal, dim=-1, keepdim=True), min=1e-9)
+    mind = sums[:, 4] / torch.clamp(cnt, min=1e-9)
+    maxd = sums[:, 5] / torch.clamp(cnt, min=1e-9)
+    has = cnt > 0
+    return state._replace(
+        mp_normal=torch.where(has[:, None], normal, state.mp_normal),
+        mp_min_dist=torch.where(has, mind, state.mp_min_dist),
+        mp_max_dist=torch.where(has, maxd, state.mp_max_dist),
+    )
+
+
 # ---------------------------------------------------------------------------
 # Per-frame tracking stages
 # ---------------------------------------------------------------------------
@@ -266,7 +301,7 @@ def build_local_points_cache(state: ms.MapState, anchor_slot, cfg: SlamConfig
     dev = state.kf_mp.device
     anchor = torch.as_tensor(anchor_slot, device=dev).long()
     amp = state.kf_mp[anchor].reshape(-1)
-    in_anchor = _scatter_max_bool(M, torch.where(amp >= 0, amp, torch.full_like(amp, M - 1)),
+    in_anchor = ms.scatter_max_bool(M, torch.where(amp >= 0, amp, torch.full_like(amp, M - 1)),
                                   amp >= 0)
     kf_obs = state.kf_mp.reshape(K, -1)
     seen = in_anchor[kf_obs.clamp(0, M - 1).long()]
@@ -277,7 +312,7 @@ def build_local_points_cache(state: ms.MapState, anchor_slot, cfg: SlamConfig
     obs_of_local = state.kf_mp[lk].reshape(local_ok.shape[0], -1)
     obs_valid = (obs_of_local >= 0) & local_ok[:, None]
     tgt = torch.where(obs_valid, obs_of_local, torch.full_like(obs_of_local, M - 1)).reshape(-1)
-    local_mask = _scatter_max_bool(M, tgt, obs_valid.reshape(-1)) & state.mp_valid
+    local_mask = ms.scatter_max_bool(M, tgt, obs_valid.reshape(-1)) & state.mp_valid
     w_row = kf_w[lk].to(torch.float32)
     rel = torch.zeros(M, dtype=torch.float32, device=dev)
     rel.scatter_reduce_(0, tgt.long(), torch.where(
@@ -297,7 +332,7 @@ def track_local_map(state: ms.MapState, Tcw: torch.Tensor, cur: frame_mod.FrameD
     """
     M = cfg.max_mp
     fmp = frame_mp.reshape(-1)
-    in_frame = _scatter_max_bool(M, torch.where(fmp >= 0, fmp, torch.full_like(fmp, M - 1)),
+    in_frame = ms.scatter_max_bool(M, torch.where(fmp >= 0, fmp, torch.full_like(fmp, M - 1)),
                                  fmp >= 0)
     gi = pts.idx.clamp(0, M - 1).long()
     ok = pts.valid & state.mp_valid[gi] & ~in_frame[gi]
@@ -441,15 +476,21 @@ class Tracker:
     the reference; `fuse_extraction` keeps the reference's ordering of
     extraction and resolution (resolve first, then extract) -- in eager
     PyTorch extraction and tracking are the same launches either way.
+
+    The tracker runs on the CUDA device unless the caller asks for another
+    one (`device="cpu"`, as the CPU tests do); with `device=None` and no
+    CUDA device the constructor raises.  `calib` is moved to that device.
     """
 
     def __init__(self, calib: cam_mod.CameraParams, cfg: SlamConfig,
                  pipelined: bool = False, pipeline_depth: int = 1,
                  fuse_extraction: bool = False, device=None):
-        self.device = torch.device(device) if device is not None else calib.K.device
-        self.calib = calib
+        self.device = resolve_device(device)
+        self.calib = cam_mod.CameraParams(*[
+            v.to(self.device) if isinstance(v, torch.Tensor) else v for v in calib])
         self.cfg = cfg
         self.kf_inserted_cb = None
+        self.reset_cb = None   # notified on reset (map-consuming stages)
         self.reloc_cb = None   # fn(FrameData) -> (ok, Tcw, frame_mp, n_inl)
         self.reloc_ready_fn = lambda: True
         self.only_tracking = False
@@ -459,8 +500,10 @@ class Tracker:
         self.reset()
 
     def reset(self):
-        """Clear the map and all per-frame state."""
+        """Clear the map and all per-frame state; notifies `reset_cb`."""
         cfg, dev = self.cfg, self.device
+        if self.reset_cb is not None:
+            self.reset_cb()
         self.map = ms.make_empty(cfg.max_kf, cfg.n_cams, cfg.max_feat, cfg.max_mp, dev)
         self.state = TrackState.NOT_INITIALIZED
         self.Tcw = torch.eye(4, dtype=torch.float32, device=dev)
@@ -476,6 +519,7 @@ class Tracker:
         self._tstate_dev = None
         self._tstate_dirty = True
         self._local_pts = None
+        self._pending_pose_corr = None  # [4, 4] right-multiplicative pose fix
         self.last_n_inliers = 0
         # (frame_id, timestamp, ref_kf_slot, (Tcw, ref_pose, ref_fid), lost)
         self.trajectory = []
@@ -483,6 +527,26 @@ class Tracker:
     def invalidate_local_cache(self):
         """Drop the per-KF local point batch; rebuilt lazily next frame."""
         self._local_pts = None
+
+    def queue_pose_correction(self, D):
+        """Right-multiplicative correction for the live tracking pose.
+
+        When the mapping or loop stage moves the newest keyframe, the live
+        frame rigidly attached to it must follow: T' = T @ D with
+        D = inv(Tcw_kf_old) @ Tcw_kf_new.  Applied after the next keyframe
+        callback.  Velocity (T_t inv(T_{t-1})) is invariant under it."""
+        D = torch.as_tensor(D, dtype=torch.float32, device=self.device)
+        self._pending_pose_corr = (
+            D if self._pending_pose_corr is None else self._pending_pose_corr @ D)
+
+    def _apply_pose_correction(self):
+        if self._pending_pose_corr is None:
+            return
+        D = self._pending_pose_corr
+        self._pending_pose_corr = None
+        self.Tcw = self.Tcw @ D
+        if self.prev_Tcw is not None:
+            self.prev_Tcw = self.prev_Tcw @ D
 
     def _ensure_local_pts(self):
         if self._local_pts is None:
@@ -535,6 +599,7 @@ class Tracker:
                 if new_map is not None:
                     self.map = new_map
             self.invalidate_local_cache()
+            self._apply_pose_correction()
 
     def _process_ok_fused(self, fr: frame_mod.FrameData):
         if self._tstate_dirty or self._tstate_dev is None:
@@ -658,6 +723,10 @@ class Tracker:
                 if new_map is not None:
                     self.map = new_map
             self.invalidate_local_cache()
+            if self._pending_pose_corr is not None:
+                Tcw = Tcw @ self._pending_pose_corr
+                self.Tcw = Tcw
+                self._pending_pose_corr = None
 
         self.prev_frame, self.prev_mp, self.prev_Tcw = fr, frame_mp, Tcw
         self._record()

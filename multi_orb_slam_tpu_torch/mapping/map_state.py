@@ -8,7 +8,8 @@ last map-point slot (M-1) is a scatter dummy that is never allocated.
 Scatters map as `.at[].set` -> `index_put_`, `.at[].max` ->
 `scatter_reduce_(..., "amax", include_self=True)`, `.at[].add` ->
 `index_add_`.  Where duplicates of one index are written (the dummy slot),
-every duplicate writes the same value, as in the reference.
+every duplicate writes the same value, as in the reference; where they
+may write different values, `scatter_set_last` fixes the winner.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ from typing import NamedTuple
 
 import torch
 
+from .. import resolve_device
 from ..ops import hamming
 
 DESC_BUF = 4  # rolling descriptor buffer per map point
@@ -58,6 +60,9 @@ class MapState(NamedTuple):
 
 def make_empty(max_kf: int, n_cams: int, max_feat: int, max_mp: int,
                device=None) -> MapState:
+    """An empty map on `device`: the CUDA device when None (raises where
+    there is none), `"cpu"` where the caller asks for it."""
+    device = resolve_device(device)
     K, C, F, M = max_kf, n_cams, max_feat, max_mp
     f32, i32 = torch.float32, torch.int32
 
@@ -94,6 +99,35 @@ def make_empty(max_kf: int, n_cams: int, max_feat: int, max_mp: int,
         next_kf_id=full((), 0, i32),
         n_alloc_failed=full((), 0, i32),
     )
+
+
+def scatter_max_bool(M: int, idx: torch.Tensor, val: torch.Tensor) -> torch.Tensor:
+    """zeros(M, bool).at[idx].max(val): true where any true value lands."""
+    out = torch.zeros(M, dtype=torch.int32, device=idx.device)
+    out.scatter_reduce_(0, idx.reshape(-1).long(), val.reshape(-1).to(torch.int32),
+                        "amax", include_self=True)
+    return out > 0
+
+
+def slot_index(k, device) -> torch.Tensor:
+    """A keyframe slot (Python int, 0-dim or 1-element tensor) as a
+    1-element int64 index tensor: rows are read with `index_select` and
+    written with `x[idx] = ...`, so a slot that lives on the device is
+    never read back to the host."""
+    return torch.as_tensor(k, device=device).reshape(1).long()
+
+
+def scatter_set_last(dst: torch.Tensor, idx: torch.Tensor, val: torch.Tensor) -> torch.Tensor:
+    """1-D `dst.at[idx].set(val)` in which, where an index repeats, the
+    update that comes LAST in `idx` wins.
+
+    The reference leaves the winner of a repeated index open; taken in
+    order, as its scatter runs on the CPU, the last one stays.  This makes
+    that rule explicit and the same on every device and launch."""
+    pos = torch.arange(idx.shape[0], device=idx.device)
+    last = torch.full((dst.shape[0],), -1, dtype=pos.dtype, device=idx.device)
+    last.scatter_reduce_(0, idx.long(), pos, "amax", include_self=True)
+    return torch.where(last >= 0, val[last.clamp(min=0)], dst)
 
 
 # ---------------------------------------------------------------------------
@@ -140,6 +174,20 @@ def mp_observation_count(state: MapState) -> torch.Tensor:
     idx = torch.where(valid, flat, torch.full_like(flat, M - 1)).long()
     cnt = torch.zeros(M, dtype=torch.int32, device=flat.device)
     cnt.index_add_(0, idx.reshape(-1), valid.to(torch.int32).reshape(-1))
+    return cnt * state.mp_valid
+
+
+def mp_weighted_obs(state: MapState) -> torch.Tensor:
+    """[M] observation weight: stereo obs count 2, mono 1 (MapPoint::nObs)."""
+    K = state.kf_mp.shape[0]
+    M = state.mp_pos.shape[0]
+    flat = state.kf_mp.reshape(K, -1)
+    ur = state.kf_uright.reshape(K, -1)
+    valid = (flat >= 0) & state.kf_valid[:, None]
+    w = torch.where(ur >= 0, 2, 1).to(torch.int32) * valid.to(torch.int32)
+    idx = torch.where(valid, flat, torch.full_like(flat, M - 1)).long()
+    cnt = torch.zeros(M, dtype=torch.int32, device=flat.device)
+    cnt.index_add_(0, idx.reshape(-1), w.reshape(-1))
     return cnt * state.mp_valid
 
 
@@ -204,6 +252,54 @@ def predict_scale(dist: torch.Tensor, max_dist: torch.Tensor,
     log_sf = float(torch.log(torch.tensor(scale_factor, dtype=torch.float32)))
     lvl = torch.ceil(torch.log(ratio) / log_sf).to(torch.int32)
     return torch.clamp(lvl, 0, n_levels - 1)
+
+
+def relieve_capacity(state: MapState, target_free: int) -> MapState:
+    """Evict the weakest map points until >= target_free slots are free.
+
+    Eviction priority is the tracking quality ratio found/visible (lowest
+    first, then the lowest slot); points observed by the 12 newest
+    keyframes are protected so the active local map is never thinned.
+    """
+    M = state.mp_pos.shape[0]
+    K = state.kf_mp.shape[0]
+    dev = state.mp_pos.device
+    n_recent = min(12, K)
+    fid = torch.where(state.kf_valid, state.kf_frame_id, torch.full_like(state.kf_frame_id, -1))
+    _, recent = hamming.top_k(fid, n_recent)
+    obs = state.kf_mp[recent].reshape(n_recent, -1)
+    ok = (obs >= 0) & state.kf_valid[recent][:, None]
+    protected = scatter_max_bool(M, torch.where(ok, obs, torch.full_like(obs, M - 1)), ok)
+
+    ratio = state.mp_found.to(torch.float32) / torch.clamp(
+        state.mp_visible.to(torch.float32), min=1.0)
+    evictable = state.mp_valid & ~protected
+    n_free = (~state.mp_valid).sum(dtype=torch.int32)
+    n_needed = torch.clamp(target_free - n_free, min=0)
+    prio = torch.where(evictable, -ratio, torch.full_like(ratio, float("-inf")))
+    _, order = hamming.top_k(prio, min(target_free, M))
+    rank_ok = torch.arange(order.shape[0], device=dev) < n_needed
+    hit = rank_ok & evictable[order]
+    kill = scatter_max_bool(M, torch.where(hit, order, torch.full_like(order, M - 1)), hit)
+    kill[M - 1] = False
+    mp_valid = state.mp_valid & ~kill
+    killed_of = kill[state.kf_mp.clamp(0, M - 1).long()] & (state.kf_mp >= 0)
+    kf_mp = torch.where(killed_of, torch.full_like(state.kf_mp, -1), state.kf_mp)
+    return state._replace(mp_valid=mp_valid, kf_mp=kf_mp,
+                          n_mp=state.n_mp - kill.sum(dtype=torch.int32))
+
+
+def kf_tracked_points(state: MapState, kf_slot, min_obs) -> torch.Tensor:
+    """Number of `kf_slot` map points with >= min_obs weighted observations
+    (KeyFrame::TrackedMapPoints)."""
+    M = state.mp_pos.shape[0]
+    w = mp_weighted_obs(state)
+    k = torch.as_tensor(kf_slot, device=state.kf_mp.device).long()
+    obs = state.kf_mp[k].reshape(-1)
+    ok = (obs >= 0) & state.kf_feat_valid[k].reshape(-1)
+    g = obs.clamp(0, M - 1).long()
+    good = ok & state.mp_valid[g] & (w[g] >= min_obs)
+    return good.sum(dtype=torch.int32)
 
 
 def dedupe_obs_rows(rows: torch.Tensor,

@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels (`csrc/*.cu`) on first use.
 
 The sources are compiled with `nvcc -gencode arch=compute_90a,code=sm_90a`
-into one shared library with a plain C interface, and loaded with `ctypes`.
+(one `nvcc -c` per source, all started together) and linked into one shared
+library with a plain C interface, loaded with `ctypes`.
 The library lands in `multi_orb_slam_tpu_torch/_build/` under a name that
 hashes the sources and flags, so an edited source rebuilds and an unchanged
 one loads at once.  Only the repository's own sources are compiled.
@@ -26,7 +27,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -36,6 +37,7 @@ SIGNATURES = {
     "gather_patches_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "window_match_launch": [_P, _P, _P, _P, _P, _P, ctypes.c_longlong,
                             _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "point_sums_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 
@@ -73,16 +75,27 @@ def load() -> ctypes.CDLL:
     if not lib_path.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, srcs)]
+        nvcc = _nvcc()
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
+        objs = [BUILD_DIR / f"{s.stem}.{os.getpid()}.o" for s in srcs]
+        procs = [subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for s, o in zip(srcs, objs)]
+        report = "".join(p.communicate()[0] for p in procs)
+        failed = [s.name for s, p in zip(srcs, procs) if p.returncode != 0]
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n{report}")
+        link = subprocess.run(
+            [nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+            capture_output=True, text=True)
+        for o in objs:
+            o.unlink(missing_ok=True)
+        if link.returncode != 0:
             raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                f"{proc.stdout}\n{proc.stderr}")
+                f"nvcc link failed ({link.returncode}):\n{link.stdout}\n{link.stderr}")
         lib_path.with_suffix(".log").write_text(
-            f"build seconds: {time.perf_counter() - t0:.2f}\n"
-            f"{proc.stdout}{proc.stderr}")
+            f"build seconds: {time.perf_counter() - t0:.2f}\n{report}")
         os.replace(tmp, lib_path)
     lib = ctypes.CDLL(str(lib_path))
     for name, argtypes in SIGNATURES.items():

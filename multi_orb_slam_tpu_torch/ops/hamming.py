@@ -43,13 +43,26 @@ def pairwise_hamming(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return ((256.0 - dot) * 0.5).to(torch.int32)
 
 
+def first_argmin(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """Index of the minimum along `dim`, the lowest index among equals.
+
+    The tie order of `jnp.argmin`, written out so that it rests on no
+    backend's reduction order."""
+    n = x.shape[dim]
+    shape = [1] * x.dim()
+    shape[dim] = n
+    idx = torch.arange(n, device=x.device).reshape(shape)
+    is_min = x == torch.amin(x, dim=dim, keepdim=True)
+    return torch.amin(torch.where(is_min, idx, n), dim=dim)
+
+
 def masked_argmin2(dist: torch.Tensor, mask: torch.Tensor):
     """Per-row best and second-best over masked columns.
 
     Returns (best_idx, best_dist, second_dist); masked entries read as BIG.
     """
     d = torch.where(mask, dist, torch.full_like(dist, BIG))
-    best_idx = torch.argmin(d, dim=-1)
+    best_idx = first_argmin(d, dim=-1)
     best = torch.gather(d, -1, best_idx[..., None])[..., 0]
     col = torch.arange(d.shape[-1], device=d.device)
     d2 = torch.where(col == best_idx[..., None], torch.full_like(d, BIG), d)

@@ -16,6 +16,7 @@ Counterpart of `multi_orb_slam_tpu/ops/pallas_kernels.py`.  Each kernel has
 | `fast_score`     | `fast_score_pallas` / `_fast_kernel`      | csrc/fast_score.cu     |
 | `gather_patches` | `gather_patches_pallas`                   | csrc/gather_patches.cu |
 | `window_match`   | `window_match_pallas` / `_window_match_kernel` | csrc/window_match.cu |
+| `point_sums`     | `point_sums_pallas` / `_point_sums_kernel` | csrc/point_sums.cu     |
 """
 
 from __future__ import annotations
@@ -28,7 +29,8 @@ import torch
 
 BIG = 1 << 20  # no-candidate distance of window_match
 
-LAUNCHES = {"fast_score": 0, "gather_patches": 0, "window_match": 0}
+LAUNCHES = {"fast_score": 0, "gather_patches": 0, "window_match": 0,
+            "point_sums": 0}
 
 
 def reset_launch_counts() -> None:
@@ -193,10 +195,9 @@ def popcount32(x: torch.Tensor) -> torch.Tensor:
     return (((v * 0x01010101) & 0xFFFFFFFF) >> 24).to(torch.int32)
 
 
-def window_match_plain(q_uv, q_rad, q_lmin, q_lmax, q_ur, q_desc,
-                       f_xy, f_ur, f_level, f_mask, f_desc):
-    """Masks, a dense [C, Q, F] Hamming matrix, then two first-argmins
-    (the semantics of `pallas_kernels.window_match_reference`)."""
+def window_match_candidates(q_uv, q_rad, q_lmin, q_lmax, q_ur,
+                            f_xy, f_ur, f_level, f_mask):
+    """[C, Q, F] bool: the (query, feature) pairs that pass every gate."""
     du = torch.abs(q_uv[:, :, None, 0] - f_xy[:, None, :, 0])
     dv = torch.abs(q_uv[:, :, None, 1] - f_xy[:, None, :, 1])
     rad = q_rad[:, :, None]
@@ -206,7 +207,15 @@ def window_match_plain(q_uv, q_rad, q_lmin, q_lmax, q_ur, q_desc,
     fur = f_ur[:, None, :]
     qur = q_ur[:, :, None]
     ur_ok = (fur < 0) | (torch.abs(qur - fur) < rad) | (qur < -1e8)
-    cand = in_win & lv_ok & ur_ok & f_mask[:, None, :]
+    return in_win & lv_ok & ur_ok & f_mask[:, None, :]
+
+
+def window_match_plain(q_uv, q_rad, q_lmin, q_lmax, q_ur, q_desc,
+                       f_xy, f_ur, f_level, f_mask, f_desc):
+    """Masks, a dense [C, Q, F] Hamming matrix, then two first-argmins
+    (the semantics of `pallas_kernels.window_match_reference`)."""
+    cand = window_match_candidates(q_uv, q_rad, q_lmin, q_lmax, q_ur,
+                                   f_xy, f_ur, f_level, f_mask)
     from . import hamming
 
     d = hamming.pairwise_hamming(q_desc, f_desc)
@@ -310,3 +319,52 @@ def window_match_tie_rows() -> dict:
         expected=np.array([[0, BIG, BIG, 0], [3, 4, BIG, 0],
                            [1, 3, 3, 2], [5, 1, 2, 0]], np.int32),
     )
+
+
+# ---------------------------------------------------------------------------
+# B4: row-wise gather through an inverse observation map + sum over rows
+# ---------------------------------------------------------------------------
+
+
+def point_sums_plain(V: torch.Tensor, inv: torch.Tensor):
+    """`torch.gather` on the clamped index, zero where `inv < 0`, and the
+    sum over rows accumulated in ascending row order (the kernel's order,
+    so `summed` can be bit-equal too)."""
+    LC, F, D = V.shape
+    P = inv.shape[1]
+    g = torch.gather(V, 1, inv.clamp(0, F - 1).long()[..., None].expand(LC, P, D))
+    gathered = torch.where((inv >= 0)[..., None], g, torch.zeros_like(g))
+    summed = torch.zeros((P, D), dtype=V.dtype, device=V.device)
+    for r in range(LC):
+        summed = summed + gathered[r]
+    return summed, gathered
+
+
+def point_sums(V: torch.Tensor, inv: torch.Tensor):
+    """V [LC, F, D] f32, inv [LC, P] int32 (-1 = no observation) ->
+    (summed [P, D], gathered [LC, P, D]).
+
+    gathered[r, p] = V[r, inv[r, p]], zeros where inv < 0; summed =
+    gathered summed over r in ascending order.  Exact: a selection in
+    float32.  Any D >= 1.  An index >= F is a caller error and reads row
+    F - 1 in both versions.
+
+    The local-BA solver uses `gathered` (its one-time re-layout of the
+    observations from feature-indexed to point-indexed rows); nothing on
+    that path reads `summed`.
+    """
+    _check(V, "V", torch.float32, 3)
+    _check(inv, "inv", torch.int32, 2)
+    LC, F, D = V.shape
+    if inv.shape[0] != LC or F < 1 or D < 1:
+        raise ValueError(f"V {tuple(V.shape)}, inv {tuple(inv.shape)}")
+    if not _route(V, inv):
+        return point_sums_plain(V, inv)
+    P = inv.shape[1]
+    summed = torch.empty((P, D), dtype=V.dtype, device=V.device)
+    gathered = torch.empty((LC, P, D), dtype=V.dtype, device=V.device)
+    if LC * P == 0:
+        return summed.zero_(), gathered
+    _launch("point_sums", "point_sums_launch", _ptr(V), _ptr(inv),
+            _ptr(summed), _ptr(gathered), LC, F, P, D)
+    return summed, gathered

@@ -34,13 +34,25 @@ def _window_args(rng, C=2, Q=300, F=256, dev="cpu"):
     )
 
 
+def _point_sums_args(rng, LC, F, P, D, dev="cpu"):
+    """Each row a random injection of F features into P points, the rest
+    -1; the last row all -1."""
+    V = rng.randn(LC, F, D).astype(np.float32)
+    inv = np.full((LC, P), -1, np.int32)
+    for r in range(LC - 1):
+        inv[r, rng.choice(P, F, replace=False)] = rng.permutation(F)
+    return torch.from_numpy(V).to(dev), torch.from_numpy(inv).to(dev)
+
+
 def test_cpu_tensors_take_the_plain_version_without_counting():
     kernels.reset_launch_counts()
     rng = np.random.RandomState(0)
     img = torch.from_numpy(rng.uniform(0, 255, (1, 2, 64, 80)).astype(np.float32))
     orb.extract_orb(img[0], orb.ORBConfig(n_features=64, n_levels=2))
     kernels.window_match(*_window_args(rng, Q=20, F=16))
-    assert kernels.LAUNCHES == {"fast_score": 0, "gather_patches": 0, "window_match": 0}
+    kernels.point_sums(*_point_sums_args(rng, 3, 16, 40, 4))
+    assert kernels.LAUNCHES == {"fast_score": 0, "gather_patches": 0, "window_match": 0,
+                                "point_sums": 0}
 
 
 @pytest.mark.parametrize("bad", ["dtype", "contiguity", "shape", "extents"])
@@ -94,3 +106,244 @@ def test_cuda_kernel_matches_plain(name):
                                       expected)
     torch.cuda.synchronize()
     assert kernels.LAUNCHES[name] > before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("LC,F,P,D", [
+    (48, 1024, 2048, 4), (64, 1024, 2048, 4), (96, 1024, 2048, 4), (128, 1024, 2048, 4),
+    (48, 1024, 4096, 30), (3, 7, 5, 1)])
+def test_cuda_point_sums_matches_plain(LC, F, P, D):
+    """The local-BA re-layout shapes (24 to 64 keyframes x 2 cameras), the
+    reference kernel's design shape, and a ragged tiny one: bit-equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.RandomState(LC + D)
+    if P < F:
+        V = torch.from_numpy(rng.randn(LC, F, D).astype(np.float32)).cuda()
+        inv = torch.from_numpy(rng.randint(-1, F + 2, (LC, P)).astype(np.int32)).cuda()
+    else:
+        V, inv = _point_sums_args(rng, LC, F, P, D, "cuda")
+    before = kernels.LAUNCHES["point_sums"]
+    s_k, g_k = kernels.point_sums(V, inv)
+    s_p, g_p = kernels.point_sums_plain(V, inv)
+    torch.cuda.synchronize()
+    assert torch.equal(g_k, g_p) and torch.equal(s_k, s_p)
+    assert kernels.LAUNCHES["point_sums"] == before + 1
+    s_k2, _ = kernels.point_sums(V, inv)
+    assert torch.equal(s_k, s_k2), "summed differs from launch to launch"
+
+
+def _ba_problem(seed=0, n_free=6, n_fixed=4, n_pts=400, C=2, F=160, dev="cpu"):
+    """A windowed BA problem made with numpy: points in front of a row of
+    rigs, pixel noise 0.1, 40% of the observations mono, 30 of them moved by
+    20 to 50 pixels, perturbed free poses and points, padded to L = 24
+    keyframe rows and P = 512 points as `build_local_problem` pads."""
+    from multi_orb_slam_tpu_torch.geometry import se3
+    from multi_orb_slam_tpu_torch.optim import local_ba
+
+    rng = np.random.RandomState(seed)
+    L, Lp, Pp = n_free + n_fixed, 24, 512
+    K = np.tile(np.array([400.0, 400.0, 320.0, 240.0], np.float32), (C, 1))
+    bf = np.float32(80.0)
+    T_rc = np.stack([np.eye(4, dtype=np.float32)] * C)
+    T_rc[1][:3, 3] = [0.1, 0.0, 0.0]
+    exp = lambda xi: se3.exp(torch.from_numpy(np.asarray(xi, np.float32))).numpy()  # noqa: E731
+    pts = rng.uniform(-3, 3, (n_pts, 3)).astype(np.float32)
+    pts[:, 2] += 4.0
+    poses = np.stack([exp([0.3 * (i - L / 2), 0, 0, 0, 0.05 * (i - L / 2), 0]) for i in range(L)])
+    obs_mp = np.full((Lp, C, F), -1, np.int32)
+    obs_uvr = np.zeros((Lp, C, F, 3), np.float32)
+    for l in range(L):
+        for c in range(C):
+            Tcam = T_rc[c] @ poses[l]
+            Xc = pts @ Tcam[:3, :3].T + Tcam[:3, 3]
+            sel = rng.permutation(np.nonzero(Xc[:, 2] > 0.5)[0])[:F]
+            u = K[c, 0] * Xc[sel, 0] / Xc[sel, 2] + K[c, 2]
+            v = K[c, 1] * Xc[sel, 1] / Xc[sel, 2] + K[c, 3]
+            uvr = np.stack([u, v, u - bf / Xc[sel, 2]], 1) + 0.1 * rng.randn(len(sel), 3)
+            uvr[rng.rand(len(sel)) < 0.4, 2] = -1.0
+            obs_mp[l, c, :len(sel)] = sel
+            obs_uvr[l, c, :len(sel)] = uvr
+    for _ in range(30):
+        l, c, j = rng.randint(L), rng.randint(C), rng.randint(F)
+        obs_uvr[l, c, j, :2] += rng.uniform(20, 50, 2)
+    kf_free = np.zeros(Lp, bool)
+    kf_free[n_fixed:L] = True
+    kf_Tcw = np.tile(np.eye(4, dtype=np.float32), (Lp, 1, 1))
+    kf_Tcw[:L] = poses
+    for l in np.nonzero(kf_free)[0]:
+        kf_Tcw[l] = exp(0.03 * rng.randn(6)) @ kf_Tcw[l]
+    mp_pos = np.zeros((Pp, 3), np.float32)
+    mp_pos[:n_pts] = pts + 0.15 * rng.randn(n_pts, 3).astype(np.float32)
+    T = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    prob = local_ba.BAProblem(
+        kf_slot=T(np.where(np.arange(Lp) < L, np.arange(Lp), -1).astype(np.int32)),
+        kf_Tcw=T(kf_Tcw), kf_free=T(kf_free), kf_valid=T(np.arange(Lp) < L),
+        mp_slot=T(np.where(np.arange(Pp) < n_pts, np.arange(Pp), -1).astype(np.int32)),
+        mp_pos=T(mp_pos), mp_valid=T(np.arange(Pp) < n_pts), obs_mp=T(obs_mp),
+        obs_uvr=T(obs_uvr),
+        obs_inv_sigma2=T((1.0 / 1.44 ** rng.randint(0, 4, (Lp, C, F))).astype(np.float32)))
+    return prob, T(T_rc), T(K), T(bf)
+
+
+def _hold_solves_together(label, prob, T_rc, K, bf, cpu, card, atol, one_stereo_holds):
+    """Two `solve_ba` results on one CPU-side problem: poses within `atol`,
+    points that their common inliers hold within `atol` metres, inlier flags
+    equal except where chi2 at the CPU's solution lies within 1% of its
+    gate.  Prints the readings."""
+    from multi_orb_slam_tpu_torch.optim import residuals
+
+    (kf_c, mp_c, inl_c), (kf_g, mp_g, inl_g) = cpu, card
+    both = inl_c & inl_g
+    P = prob.mp_pos.shape[0]
+    n_inl = torch.bincount(prob.obs_mp[both].long(), minlength=P)
+    n_st = torch.bincount(prob.obs_mp[both & (prob.obs_uvr[..., 2] >= 0)].long(), minlength=P)
+    held = prob.mp_valid & ((n_inl >= 2) | ((n_st >= 1) if one_stereo_holds else False))
+    d_kf = float((kf_g - kf_c).abs().max())
+    d_mp = (mp_g - mp_c).abs().amax(-1)
+    differ = inl_c != inl_g
+    loose = prob.mp_valid & ~held
+    print(f"solve_ba card vs CPU, {label}: poses max |diff| {d_kf:.3e}; "
+          f"{int(held.sum())} held points max {float(d_mp[held].max()):.3e} m; "
+          f"{int(loose.sum())} other points max "
+          f"{float(d_mp[loose].max()) if loose.any() else 0.0:.3e} m; "
+          f"{int(differ.sum())} inlier flags differ; farthest point "
+          f"{float(mp_c[prob.mp_valid].norm(dim=-1).max()):.1f} m (CPU) "
+          f"{float(mp_g[prob.mp_valid].norm(dim=-1).max()):.1f} m (card)")
+    assert d_kf < atol
+    assert int(held.sum()) >= 0.6 * int(prob.mp_valid.sum())
+    assert float(d_mp[held].max()) < atol
+    if differ.any():
+        g = prob.obs_mp.clamp(min=0).long()
+        e, _, _, is_st, _ = residuals.reproj_residual(
+            kf_c[:, None, None], mp_c[g], T_rc[None, :, None], K[None, :, None], bf,
+            prob.obs_uvr, want_jac=False)
+        chi2 = torch.sum(e * e * residuals.row_weights(is_st), dim=-1) * prob.obs_inv_sigma2
+        gate = torch.where(is_st, 7.815, 5.991)
+        assert bool(((chi2 - gate).abs()[differ] <= 1e-2 * gate[differ]).all()), int(differ.sum())
+
+
+def test_ba_problem_fixture_is_solved_on_the_cpu():
+    """The fixed problem of the card test below: local BA brings the
+    perturbed free poses back and rejects the moved observations."""
+    from multi_orb_slam_tpu_torch.optim import local_ba
+
+    prob, T_rc, K, bf = _ba_problem()
+    start = prob.kf_Tcw.clone()
+    kf, mp, inl = local_ba.solve_ba(prob, T_rc, K, bf, phases=((5, True), (8, False)))
+    free = prob.kf_free
+    assert torch.equal(kf[~free], start[~free])
+    seen = prob.obs_mp >= 0
+    assert 15 <= int((seen & ~inl).sum()) <= 0.05 * int(seen.sum())
+    assert torch.isfinite(kf).all() and torch.isfinite(mp).all()
+
+
+@pytest.mark.cuda
+def test_cuda_solve_ba_matches_cpu():
+    """`solve_ba` on the card against `solve_ba` on the CPU on one fixed
+    problem (24 keyframe rows x 2 cameras, 512 points: the `point_sums`
+    kernel on one side, its plain version on the other).  Poses atol 1e-3,
+    points whose inliers fix their depth (two or more, or one stereo) atol
+    1e-3 m, inlier flags equal except where chi2 at the CPU's solution lies
+    within 1% of its gate."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from multi_orb_slam_tpu_torch.optim import local_ba
+
+    phases = ((5, True), (8, False))
+    prob, T_rc, K, bf = _ba_problem()
+    kf_c, mp_c, inl_c = local_ba.solve_ba(prob, T_rc, K, bf, phases=phases)
+    before = kernels.LAUNCHES["point_sums"]
+    prob_g, *cal_g = _ba_problem(dev="cuda")
+    kf_g, mp_g, inl_g = [x.cpu() for x in local_ba.solve_ba(prob_g, *cal_g, phases=phases)]
+    assert kernels.LAUNCHES["point_sums"] == before + 1
+    _hold_solves_together("fixed problem", prob, T_rc, K, bf, (kf_c, mp_c, inl_c),
+                          (kf_g, mp_g, inl_g), atol=1e-3, one_stereo_holds=True)
+
+
+def _small_scene():
+    """A one-camera 320x240 scene of 12 frames and its configuration."""
+    from multi_orb_slam_tpu_torch.config import SlamConfig
+    from multi_orb_slam_tpu_torch.geometry import camera as cam_mod
+    from multi_orb_slam_tpu_torch.io import synthetic
+
+    Hh, Ww, Cc = 240, 320, 1
+    cfg = SlamConfig(n_cams=Cc, max_feat=512, max_kf=32, max_mp=8192, width=Ww, height=Hh,
+                     th_depth=6.0, max_frames_kf=4, orb=orb.ORBConfig(n_features=512))
+    K = torch.tensor([[260.0, 260.0, 160.0, 120.0]])
+    calib = cam_mod.CameraParams(K=K, dist=torch.zeros((1, 5)), T_rc=torch.eye(4)[None],
+                                 bf=torch.tensor(20.0), width=Ww, height=Hh)
+    seq = synthetic.make_sequence(n_frames=12, K=K[0].numpy(), height=Hh, width=Ww,
+                                  n_points=2500)
+    return cfg, calib, seq
+
+
+@pytest.mark.cuda
+def test_cuda_solve_ba_matches_cpu_on_a_real_window():
+    """The local-BA window of the last keyframe of a tracked scene (built
+    on the CPU), solved on the CPU and on the card.  A real window holds
+    points that one inlier or none leaves free to slide along their ray
+    (in the reference package too); poses and the points that two or more
+    common inliers hold agree to 2e-3, inlier flags except near the gate."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from multi_orb_slam_tpu_torch.frontend import tracking
+    from multi_orb_slam_tpu_torch.mapping import fusion, local_mapping, triangulation
+    from multi_orb_slam_tpu_torch.optim import local_ba
+
+    cfg, calib, seq = _small_scene()
+    tracker = tracking.Tracker(calib, cfg, device="cpu")
+    snaps = []
+
+    def cb(k):
+        snaps.append((tracker.map, k, tracker.frame_id))
+        return local_mapping.run_mapping_stage(tracker.map, k, tracker.frame_id, calib, cfg)
+
+    tracker.kf_inserted_cb = cb
+    for g, d in zip(seq.grays, seq.depths):
+        tracker.process(g, d)
+    st, k, fid = snaps[-1]
+    assert int(st.n_kf) >= 4
+    st = local_mapping.cull_map_points(st, fid, cfg)
+    st = triangulation.triangulate_new_points(st, k, calib, cfg)[0]
+    st = fusion.fuse_neighbors(st, k, calib, cfg)[0]
+    prob = local_mapping.build_local_problem(st, k, cfg, 12, 12)
+    phases = ((5, True), (8, False))
+    cpu = local_ba.solve_ba(prob, calib.T_rc, calib.K, calib.bf, phases=phases)
+    prob_g = local_ba.BAProblem(*[v.cuda() for v in prob])
+    card = [x.cpu() for x in local_ba.solve_ba(
+        prob_g, calib.T_rc.cuda(), calib.K.cuda(), calib.bf.cuda(), phases=phases)]
+    _hold_solves_together("real window", prob, calib.T_rc, calib.K, calib.bf, cpu, card,
+                          atol=2e-3, one_stereo_holds=False)
+
+
+@pytest.mark.cuda
+def test_cuda_mapping_stage_runs_on_the_card():
+    """The tracker with the mapping stage, every stage on, over a small
+    one-camera scene on the CPU and on the card: the same keyframes, every
+    frame tracked, both within 5 cm of ground truth.  (The two runs are not
+    held to each other: tracking alone already differs by 6 mm between the
+    devices on this scene, and local BA over 4 keyframes amplifies it.)"""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from multi_orb_slam_tpu_torch.frontend import tracking
+    from multi_orb_slam_tpu_torch.geometry import align
+    from multi_orb_slam_tpu_torch.mapping import local_mapping
+
+    cfg, calib, seq = _small_scene()
+    out = {}
+    for dev in ("cpu", "cuda"):
+        tracker = tracking.Tracker(calib, cfg, device=dev)
+        tracker.kf_inserted_cb = lambda k, t=tracker: local_mapping.run_mapping_stage(
+            t.map, k, t.frame_id, t.calib, cfg)
+        for g, d in zip(seq.grays, seq.depths):
+            tracker.process(g, d)
+        traj = tracker.absolute_trajectory()
+        assert all(not lost for *_, lost in traj)
+        centres = lambda Ts: torch.from_numpy(np.stack(  # noqa: E731
+            [np.linalg.inv(np.asarray(T, np.float64))[:3, 3] for T in Ts]))
+        ate = float(align.ate_rmse(centres([T for _, _, T, _ in traj]), centres(seq.poses_gt)))
+        out[dev] = (ate, int(tracker.map.n_kf))
+    assert kernels.LAUNCHES["point_sums"] >= 1
+    assert out["cpu"][1] == out["cuda"][1] >= 3
+    assert out["cpu"][0] < 0.05 and out["cuda"][0] < 0.05, out

@@ -73,10 +73,10 @@ def world():
     # map frame = rig frame 0; the true pose of frame 1 in it
     Tcw1 = jnp.asarray(seq.poses_gt[1] @ np.linalg.inv(seq.poses_gt[0]))
     return dict(jcal=jcal, cfg=cfg, fr0=fr0, fr1=fr1, state=state, frame_mp=frame_mp,
-                Tcw1=Tcw1, tcal=convert.to_torch(jcal, t_cam.CameraParams),
-                tfr0=convert.to_torch(fr0, t_frame.FrameData),
-                tfr1=convert.to_torch(fr1, t_frame.FrameData),
-                tstate=convert.to_torch(state, t_ms.MapState))
+                Tcw1=Tcw1, tcal=convert.to_torch(jcal, t_cam.CameraParams, "cpu"),
+                tfr0=convert.to_torch(fr0, t_frame.FrameData, "cpu"),
+                tfr1=convert.to_torch(fr1, t_frame.FrameData, "cpu"),
+                tstate=convert.to_torch(state, t_ms.MapState, "cpu"))
 
 
 # ---------------------------------------------------------------------------
@@ -195,6 +195,25 @@ def test_search_points_in_frame(world):
     np.testing.assert_array_equal(_n(got[1]), np.asarray(ref[1]))
 
 
+@pytest.mark.parametrize("use_view_cos", [True, False])
+def test_search_points_in_frame_with_fuse_arguments(world, use_view_cos):
+    """The arguments `fusion._fuse_step` passes: radius 3, no ratio test,
+    TH_LOW, the 60-degree view gate, and no feature taken."""
+    cfg, fr1, jcal = world["cfg"], world["fr1"], world["jcal"]
+    st_j, st_t = world["state"], world["tstate"]
+    pts_j = j_search.gather_local_points(st_j, st_j.mp_valid, cfg.local_cap)
+    pts_t = t_search.gather_local_points(st_t, st_t.mp_valid, cfg.local_cap)
+    fargs = (fr1.xy_und, fr1.uright, fr1.level, fr1.desc, fr1.valid,
+             jnp.zeros((C, NF), bool), world["Tcw1"], jcal.T_rc, jcal.K, jcal.bf)
+    static = (W, H, cfg.scale_factor, cfg.n_levels)
+    kw = dict(th_radius=3.0, nn_ratio=1.0, th_hamming=50, use_view_cos=use_view_cos)
+    ref = j_search.search_points_in_frame(pts_j, *fargs, *static, **kw)
+    got = t_search.search_points_in_frame(pts_t, *[_t(a) for a in fargs], *static, **kw)
+    assert int((np.asarray(ref[0]) >= 0).sum()) > 200
+    np.testing.assert_array_equal(_n(got[0]), np.asarray(ref[0]))
+    np.testing.assert_array_equal(_n(got[1]), np.asarray(ref[1]))
+
+
 def test_match_frame_kf_brute(world):
     fr1, st_j = world["fr1"], world["state"]
     args = (st_j.kf_desc[0], st_j.kf_feat_valid[0], st_j.kf_mp[0], st_j.kf_angle[0],
@@ -211,7 +230,7 @@ def test_optimize_pose(world, prev_search):
     matched = np.asarray(ref[0]) >= 0
     obs_j = j_tr._pose_obs_from_matches(fr1, ref[1], jnp.asarray(matched), cfg)
     T_j, inl_j, n_j = j_po.optimize_pose(jnp.eye(4), obs_j, jcal.T_rc, jcal.K, jcal.bf)
-    obs_t = convert.to_torch(obs_j, t_po.PoseObs)
+    obs_t = convert.to_torch(obs_j, t_po.PoseObs, "cpu")
     T_t, inl_t, n_t = t_po.optimize_pose(torch.eye(4), obs_t, _t(jcal.T_rc), _t(jcal.K),
                                          _t(jcal.bf))
     np.testing.assert_allclose(_n(T_t), np.asarray(T_j), atol=1e-4)

@@ -13,7 +13,12 @@ over 10 frames is shared by every test:
   keeps every camera centre within 5 mm of the reference's (the port's
   pyramid resampling differs by ~1e-4 grey levels, which moves a few
   keypoints) and has ATE < 0.05 m;
-- the port imports no jax; `convert.py` round-trips a `MapState`.
+- the port imports no jax; `convert.py` round-trips a `MapState`;
+- `Tracker`, `make_empty` and `convert.to_torch` run on the CUDA device
+  unless asked for the CPU (and raise where there is none); the tracker
+  notifies `reset_cb` and applies a queued pose correction at the next keyframe as the reference does (each package's
+  Tcw' = Tcw @ D to 1e-6; the two trackers' centres within the 5 mm of the
+  end-to-end test).
 """
 
 import os
@@ -88,14 +93,14 @@ def test_track_frame_fused_stage_parity(ref_run):
         s["state"], s["prev"], s["prev_Tcw"], s["prev_mp"], s["velocity"],
         jnp.asarray(s["tstate"]), s["local_pts"], s["cur"], jcal, jcfg,
         jnp.asarray(STAGE_K, jnp.int32))
-    T = lambda x: convert._field_to_torch(x, None)  # noqa: E731
+    T = lambda x: convert._field_to_torch(x, "cpu")  # noqa: E731
     out_t = t_tr.track_frame_fused(
-        convert.to_torch(s["state"], t_ms.MapState),
-        convert.to_torch(s["prev"], t_frame.FrameData), T(s["prev_Tcw"]), T(s["prev_mp"]),
+        convert.to_torch(s["state"], t_ms.MapState, "cpu"),
+        convert.to_torch(s["prev"], t_frame.FrameData, "cpu"), T(s["prev_Tcw"]), T(s["prev_mp"]),
         T(s["velocity"]), T(s["tstate"]),
-        convert.to_torch(s["local_pts"], t_search.LocalPoints),
-        convert.to_torch(s["cur"], t_frame.FrameData),
-        convert.to_torch(jcal, t_cam.CameraParams), TCfg(**CFG_KW, orb=t_orb.ORBConfig(n_features=NF)),
+        convert.to_torch(s["local_pts"], t_search.LocalPoints, "cpu"),
+        convert.to_torch(s["cur"], t_frame.FrameData, "cpu"),
+        convert.to_torch(jcal, t_cam.CameraParams, "cpu"), TCfg(**CFG_KW, orb=t_orb.ORBConfig(n_features=NF)),
         STAGE_K)
     scal_j = np.asarray(out_j[5])
     assert scal_j[0] == 1 and scal_j[2] == 1, f"frame {STAGE_K} should track and insert a KF"
@@ -114,8 +119,8 @@ def test_track_frame_fused_stage_parity(ref_run):
 def test_tracker_end_to_end(ref_run):
     seq, jcal = ref_run["seq"], ref_run["jcal"]
     tcfg = TCfg(**CFG_KW, orb=t_orb.ORBConfig(n_features=NF))
-    tracker = t_tr.Tracker(convert.to_torch(jcal, t_cam.CameraParams), tcfg,
-                           pipelined=True, pipeline_depth=3)
+    tracker = t_tr.Tracker(convert.to_torch(jcal, t_cam.CameraParams, "cpu"), tcfg,
+                           pipelined=True, pipeline_depth=3, device="cpu")
     for g, d in zip(seq.grays, seq.depths):
         tracker.process(g, d)
     traj = tracker.absolute_trajectory()
@@ -132,10 +137,10 @@ def test_tracker_stepwise_matches_pipelined(ref_run):
     """The unpipelined host path agrees with the pipelined fused path."""
     seq, jcal = ref_run["seq"], ref_run["jcal"]
     tcfg = TCfg(**CFG_KW, orb=t_orb.ORBConfig(n_features=NF))
-    tcal = convert.to_torch(jcal, t_cam.CameraParams)
+    tcal = convert.to_torch(jcal, t_cam.CameraParams, "cpu")
     outs = []
     for pipe in (False, True):
-        tracker = t_tr.Tracker(tcal, tcfg, pipelined=pipe, fuse_extraction=pipe)
+        tracker = t_tr.Tracker(tcal, tcfg, pipelined=pipe, fuse_extraction=pipe, device="cpu")
         for g, d in zip(seq.grays[:6], seq.depths[:6]):
             tracker.process(g, d)
         est = np.stack([T for _, _, T, _ in tracker.absolute_trajectory()])
@@ -146,15 +151,92 @@ def test_tracker_stepwise_matches_pipelined(ref_run):
 
 def test_convert_map_state_round_trip(ref_run):
     st = ref_run["state"]
-    back = convert.to_numpy(convert.to_torch(st, t_ms.MapState))
+    back = convert.to_numpy(convert.to_torch(st, t_ms.MapState, "cpu"))
     rebuilt = j_ms.MapState(**back)
     for name in st._fields:
         a, b = np.asarray(getattr(st, name)), np.asarray(getattr(rebuilt, name))
         assert a.dtype == b.dtype, name
         np.testing.assert_array_equal(a, b, err_msg=name)
     pts = j_search.gather_local_points(st, st.mp_valid, 64)
-    back = j_search.LocalPoints(**convert.to_numpy(convert.to_torch(pts, t_search.LocalPoints)))
+    back = j_search.LocalPoints(**convert.to_numpy(convert.to_torch(pts, t_search.LocalPoints, "cpu")))
     np.testing.assert_array_equal(np.asarray(back.desc), np.asarray(pts.desc))
+
+
+def test_tracker_device_default(ref_run):
+    """No `device`: the card, or an error where there is none.  The tests
+    ask for the CPU, and `calib` follows the tracker's device."""
+    tcal = convert.to_torch(ref_run["jcal"], t_cam.CameraParams, "cpu")
+    tcfg = TCfg(**CFG_KW, orb=t_orb.ORBConfig(n_features=NF))
+    if torch.cuda.is_available():
+        assert t_tr.Tracker(tcal, tcfg).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            t_tr.Tracker(tcal, tcfg)
+    tracker = t_tr.Tracker(tcal, tcfg, device="cpu")
+    assert tracker.device.type == "cpu" and tracker.map.kf_mp.device.type == "cpu"
+    assert tracker.calib.K.device.type == "cpu" and tracker.calib.width == W
+    calls = []
+    tracker.reset_cb = lambda: calls.append(1)
+    tracker.reset()
+    assert calls == [1] and tracker.reset_cb is not None
+
+
+@pytest.mark.parametrize("maker", ["make_empty", "to_torch"])
+def test_state_creators_device_default(ref_run, maker):
+    """Whatever creates state follows the tracker's rule: no `device` means
+    the card (an error where there is none), `"cpu"` is asked for."""
+    if maker == "make_empty":
+        make = lambda **kw: t_ms.make_empty(4, 1, 8, 16, **kw)  # noqa: E731
+    else:
+        make = lambda **kw: convert.to_torch(  # noqa: E731
+            ref_run["jcal"], t_cam.CameraParams, **kw)
+    field = lambda st: st.kf_mp if maker == "make_empty" else st.K  # noqa: E731
+    if torch.cuda.is_available():
+        assert field(make()).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+    assert field(make(device="cpu")).device.type == "cpu"
+
+
+def test_queue_pose_correction_matches_reference(ref_run):
+    """A correction queued before a keyframe frame is applied when that
+    keyframe is inserted, after the keyframe callback, in both packages
+    alike (Tcw' = Tcw @ D to 1e-6); two queued ones compose."""
+    seq, jcal = ref_run["seq"], ref_run["jcal"]
+    tcfg = TCfg(**CFG_KW, orb=t_orb.ORBConfig(n_features=NF))
+    jt = j_tr.Tracker(jcal, ref_run["jcfg"])
+    tt = t_tr.Tracker(convert.to_torch(jcal, t_cam.CameraParams, "cpu"), tcfg, device="cpu")
+    D1 = np.array(j_se3.exp(jnp.asarray([0.01, -0.02, 0.005, 0.002, -0.001, 0.003])))
+    D2 = np.array(j_se3.exp(jnp.asarray([-0.004, 0.0, 0.01, 0.0, 0.002, 0.0])))
+    at_cb = {}
+    jt.kf_inserted_cb = lambda k: at_cb.__setitem__("j", np.array(jt.Tcw))
+    tt.kf_inserted_cb = lambda k: at_cb.__setitem__("t", tt.Tcw.numpy().copy())
+    for i in range(STAGE_K + 1):
+        if i == STAGE_K:
+            at_cb.clear()
+            jt.queue_pose_correction(jnp.asarray(D1))
+            jt.queue_pose_correction(jnp.asarray(D2))
+            tt.queue_pose_correction(D1)
+            tt.queue_pose_correction(D2)
+        jt.process(seq.grays[i], seq.depths[i])
+        tt.process(seq.grays[i], seq.depths[i])
+    assert jt.last_kf_frame == STAGE_K and tt.last_kf_frame == STAGE_K
+    assert tt._pending_pose_corr is None and jt._pending_pose_corr is None
+    D = D1 @ D2
+    assert np.abs(D - np.eye(4)).max() > 0.01
+    np.testing.assert_allclose(np.asarray(jt.Tcw), at_cb["j"] @ D, atol=1e-6)
+    np.testing.assert_allclose(tt.Tcw.numpy(), at_cb["t"] @ D, atol=1e-6)
+    np.testing.assert_array_equal(tt.prev_Tcw.numpy(), tt.Tcw.numpy())
+    # the two trackers agree as they do end to end
+    assert np.abs(_centers([tt.Tcw.numpy()]) - _centers([np.asarray(jt.Tcw)])).max() < 0.005
+    # the pipelined tracker applies it when the keyframe is resolved
+    tt.queue_pose_correction(D1)
+    Tcw, prev = tt.Tcw.clone(), tt.prev_Tcw.clone()
+    tt._apply_pose_correction()
+    np.testing.assert_allclose(tt.Tcw.numpy(), Tcw.numpy() @ D1, atol=1e-6)
+    np.testing.assert_allclose(tt.prev_Tcw.numpy(), prev.numpy() @ D1, atol=1e-6)
+    assert tt._pending_pose_corr is None
 
 
 def test_port_imports_no_jax():
@@ -164,7 +246,10 @@ def test_port_imports_no_jax():
         "mods = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
         "for m in mods: importlib.import_module(m)\n"
         "import chip_smoke\n"
-        "assert len(mods) >= 15, mods\n"
+        "assert len(mods) >= 19, mods\n"
+        "for m in ('mapping.local_mapping', 'mapping.triangulation', 'mapping.fusion',\n"
+        "          'optim.local_ba'):\n"
+        "    assert p.__name__ + '.' + m in sys.modules, m\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m.startswith('multi_orb_slam_tpu.') or m == 'multi_orb_slam_tpu')\n"
         "assert not bad, bad\n"
