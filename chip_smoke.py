@@ -11,26 +11,29 @@ Phases (each raises on failure; the script then exits non-zero):
    the main path gives it (640x480, 2 cameras, 8 levels, 1024 features per
    camera, local-BA windows of 24 to 64 keyframe rows): `fast_score`,
    `gather_patches` and `point_sums` must be bit-equal to their plain
-   PyTorch versions; `window_match` must give equal distances, equal
-   indices wherever the best is unique, and the expected hand-made tie rows.
-   Kernel and plain version are timed with CUDA events after a warm-up,
-   and beside them the one PyTorch call that computes the same function,
-   where there is one.  Each kernel's bound (the least time the card could
-   take: bytes over 3.35 TB/s or operations over 67 Top/s, the larger) is
-   computed from the phase's inputs.
+   PyTorch versions; `window_match` must give equal distances and equal
+   best and second indices on every row, at the search shape (C = 2, Q =
+   2048, F = 1024) and at the dense shape of `match_frame_kf_brute` (Q = F =
+   1024, every gate open), and the expected rows of both hand-made tie sets.
+   Three clocks per kernel: `ms`, CUDA events around 20 wrapper calls (what
+   a caller that queues calls back to back sees: the slower of host and
+   device); `device_ms`, the kernel's own duration on the card, from
+   `torch.profiler` by kernel name; `host_us`, the host clock around 200
+   wrapper calls with no synchronise, per call.  The plain version is timed
+   like `ms`, and beside it the one PyTorch call that computes the same
+   function, where there is one.  Each kernel's bound (the least time the
+   card could take: bytes over 3.35 TB/s or operations over 67 Top/s, the
+   larger) is computed from the phase's inputs and is to be held against
+   `device_ms`.
 3. Tracking path: the first 20 frames of the bench's orbit scene (4000
    textured squares, 640x480, the dual ~90-degree rig) through
    `Tracker(calib, cfg, pipelined=True, pipeline_depth=3)` with the default
    `SlamConfig` and no mapping callback.
 4. Mapping path: all 60 orbit frames through the same tracker with
    `kf_inserted_cb` running `run_mapping_stage` and `covis_kf_count` (the
-   next keyframe's window hint), as `bench.py` sets it.  Should the orbit
-   map fewer than 3 keyframes (no local BA, so no `point_sums` launch), the
-   160-frame circuit scene is run in its place.  The orbit maps 4, so the
-   fallback does not run today; if it did, it would fail its tracked-frames
-   check: at 2.5 degrees of rotation per frame neither this port nor the
-   reference package tracks all 160 circuit frames with mapping (see
-   `tools/circuit_parity.py`).
+   next keyframe's window hint), as `bench.py` sets it.  The orbit maps 4
+   keyframes and solves 2 local BAs; with no local BA (so no `point_sums`
+   launch) the phase fails.
    For each path every kernel's launch count is set to 0 just before and
    read just after; a path fails unless every frame tracks, ATE < 0.02 m,
    no pose or map point is NaN and every kernel of the path launched (the
@@ -52,7 +55,7 @@ import torch
 H, W, C = 480, 640, 2
 N_FRAMES = 60
 N_FRAMES_TRACKING_ONLY = 20
-N_FRAMES_CIRCUIT = 160
+N_FRAMES_CIRCUIT = 160     # `render_scene("circuit")`, for tools/torch_mapping_profile.py
 ATE_LIMIT_M = 0.02
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate
 FP32_OPS_PER_S = 67e12      # H100 SXM float32 rate outside the tensor cores;
@@ -64,6 +67,9 @@ KERNELS = {
     "window_match": ("multi_orb_slam_tpu_torch/csrc/window_match.cu", f"{REF}:228"),
     "point_sums": ("multi_orb_slam_tpu_torch/csrc/point_sums.cu", f"{REF}:449"),
 }
+# a part of each kernel's name on the device, as the profiler shows it
+KERNEL_SYMBOLS = {"fast_score": "fast_score_kernel", "gather_patches": "gather_patches_kernel",
+                  "window_match": "window_match_kernel", "point_sums": "point_sums_kernel"}
 
 
 def bound(n_bytes, n_ops):
@@ -74,18 +80,21 @@ def bound(n_bytes, n_ops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def report(name, err, ms, plain_ms, library_ms, n_bytes, n_ops):
+def report(name, err, clocks, plain_ms, library_ms, n_bytes, n_ops):
     bound_ms, bound_by = bound(n_bytes, n_ops)
     lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
-    print(f"  kernel {ms:.4f} ms   plain {plain_ms:.4f} ms   library {lib}   "
+    print(f"  kernel {clocks['ms']:.4f} ms (device {clocks['device_ms']:.4f}, "
+          f"host {clocks['host_us']:.1f} us a call)   "
+          f"plain {plain_ms:.4f} ms   library {lib}   "
           f"bound {bound_ms:.5f} ms by {bound_by} "
-          f"({n_bytes / 1e6:.2f} MB, {n_ops / 1e6:.1f} Mop)")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+          f"({n_bytes / 1e6:.2f} MB, {n_ops / 1e6:.1f} Mop): device time "
+          f"{clocks['device_ms'] / bound_ms:.1f}x the bound")
+    return {"max_abs_err": err, **clocks, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": library_ms}
 
 
 def cuda_ms(fn, reps=20, warmup=3):
-    """Mean device milliseconds per call, by CUDA events around `reps` calls."""
+    """Mean milliseconds per call, by CUDA events around `reps` calls."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -97,6 +106,53 @@ def cuda_ms(fn, reps=20, warmup=3):
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+def profiled_device_ms(fn, kernel, reps=20):
+    """Mean duration on the card of the device kernels whose name contains
+    `kernel`, over `reps` calls of `fn` under `torch.profiler`.  Tracing takes
+    a while to start and misses launches until then, so `reps` calls go to the
+    profiler's warm-up step first and only the next `reps` are read."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    steps = torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts, schedule=steps) as prof:
+        for _ in range(2):
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+    total_us, count = 0.0, 0
+    for avg in prof.key_averages():
+        if kernel in avg.key and avg.self_device_time_total > 0:
+            total_us += avg.self_device_time_total
+            count += avg.count
+    if count != reps:
+        raise AssertionError(f"profiler saw {count} launches of {kernel}, expected {reps}")
+    return total_us / count / 1e3
+
+
+def host_us(fn, reps=200):
+    """Host microseconds per call: `reps` calls queued with no synchronise."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    dt = time.perf_counter() - t
+    torch.cuda.synchronize()
+    return dt / reps * 1e6
+
+
+def kernel_clocks(fn, name):
+    """The wrapper call `fn` of kernel `name` on its three clocks."""
+    from multi_orb_slam_tpu_torch.ops import kernels
+
+    before = kernels.LAUNCHES[name]
+    clocks = {"ms": cuda_ms(fn), "device_ms": profiled_device_ms(fn, KERNEL_SYMBOLS[name]),
+              "host_us": host_us(fn)}
+    if kernels.LAUNCHES[name] <= before:
+        raise AssertionError(f"{name}: the timed call launched no kernel")
+    return clocks
 
 
 def phase_device():
@@ -118,13 +174,22 @@ def phase_device():
             print(f"  ptxas: {line.strip()}")
 
 
-def phase_fast_score(dev, rng):
-    from multi_orb_slam_tpu_torch.ops import kernels, orb
+def fast_score_inputs(dev, rng):
+    """A random canvas with the extents of the main path: 2 cameras x 8
+    pyramid levels of a 640x480 image."""
+    from multi_orb_slam_tpu_torch.ops import orb
 
     cfg = orb.ORBConfig(n_features=1024)
     shapes = orb.pyramid_shapes(H, W, cfg)
     extents = [shapes[lvl] for _ in range(C) for lvl in range(cfg.n_levels)]
     canvas = torch.from_numpy(rng.uniform(0, 255, (len(extents), H, W)).astype(np.float32)).to(dev)
+    return canvas, extents
+
+
+def phase_fast_score(dev, rng):
+    from multi_orb_slam_tpu_torch.ops import kernels
+
+    canvas, extents = fast_score_inputs(dev, rng)
     got = kernels.fast_score(canvas, extents)
     want = kernels.fast_score_plain(canvas, extents)
     torch.cuda.synchronize()
@@ -133,13 +198,15 @@ def phase_fast_score(dev, rng):
     print(f"fast_score [{len(extents)}, {H}, {W}]: bit-equal {equal}, max |diff| {err}")
     if not equal:
         raise AssertionError("fast_score kernel differs from its plain version")
-    ms = cuda_ms(lambda: kernels.fast_score(canvas, extents))
+    clocks = kernel_clocks(lambda: kernels.fast_score(canvas, extents), "fast_score")
     plain_ms = cuda_ms(lambda: kernels.fast_score_plain(canvas, extents))
     # reads the live extent of each image, writes the whole canvas; per live
-    # pixel 16 differences, 16 arcs of 8 min + 8 max, and 49 to combine them
+    # pixel the least arithmetic known for the function: 16 differences, the
+    # 16 arc minima and the 16 arc maxima from block prefixes and suffixes
+    # (44 + 44), 30 to combine them, 1 negation and 1 final maximum
     live = sum(h * w for h, w in extents)
-    return report("fast_score", err, ms, plain_ms, None,
-                  4 * live + 4 * canvas.numel(), 321 * live)
+    return report("fast_score", err, clocks, plain_ms, None,
+                  4 * live + 4 * canvas.numel(), 136 * live)
 
 
 def phase_gather_patches(dev, rng):
@@ -159,7 +226,7 @@ def phase_gather_patches(dev, rng):
           f"bit-equal {equal}, max |diff| {err}")
     if not equal:
         raise AssertionError("gather_patches kernel differs from its plain version")
-    ms = cuda_ms(lambda: kernels.gather_patches(canvas, idx, side))
+    clocks = kernel_clocks(lambda: kernels.gather_patches(canvas, idx, side), "gather_patches")
     plain_ms = cuda_ms(lambda: kernels.gather_patches_plain(canvas, idx, side))
     # library form: one advanced-indexing call on ready-made index tensors
     d = torch.arange(side, device=dev)
@@ -169,13 +236,38 @@ def phase_gather_patches(dev, rng):
     library_ms = cuda_ms(lambda: canvas[ib, iy, ix])
     # writes every patch once; reads as much, or the canvas if that is less
     out_bytes = 4 * N * side * side
-    return report("gather_patches", err, ms, plain_ms, library_ms,
+    return report("gather_patches", err, clocks, plain_ms, library_ms,
                   out_bytes + min(out_bytes, 4 * canvas.numel()) + 4 * idx.numel(), 0)
 
 
-def phase_window_match(dev, rng):
+WINDOW_MATCH_ARGS = ("q_uv", "q_rad", "q_lmin", "q_lmax", "q_ur", "q_desc",
+                     "f_xy", "f_ur", "f_level", "f_mask", "f_desc")
+
+
+def hold_window_match(label, args):
+    """The kernel against the plain version on `args`: distances and both
+    indices equal on every row.  Returns the largest distance error."""
     from multi_orb_slam_tpu_torch.ops import kernels
 
+    got = kernels.window_match(*args)
+    want = kernels.window_match_plain(*args)
+    torch.cuda.synchronize()
+    (bi, bd, b2, b2i), (rbi, rbd, rb2, rb2i) = got, want
+    err = max(float((bd - rbd).abs().max()), float((b2 - rb2).abs().max()))
+    dist_ok = bool(torch.equal(bd, rbd) and torch.equal(b2, rb2))
+    rows_ok = (bi == rbi) & (b2i == rb2i)
+    print(f"window_match {label}: distances equal {dist_ok}, best and second index equal "
+          f"on {int(rows_ok.sum())} of {rows_ok.numel()} rows "
+          f"({int((rbd < rb2).sum())} with a unique best, {int((rbd >= kernels.BIG).sum())} "
+          f"with no candidate), max |diff| {err}")
+    if not (dist_ok and bool(rows_ok.all())):
+        raise AssertionError(f"window_match {label}: kernel differs from its plain version")
+    return err
+
+
+def window_match_inputs(dev, rng):
+    """(args, dense): random arguments at the search shape C = 2, Q = 2048,
+    F = 1024, and at the dense shape of `search.match_frame_kf_brute`."""
     Q, F = C * 1024, 1024
     T = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
     q_lmin = rng.randint(-1, 7, (C, Q)).astype(np.int32)
@@ -191,42 +283,58 @@ def phase_window_match(dev, rng):
         T(rng.rand(C, F) < 0.9),
         T(rng.randint(-2**31, 2**31, (C, F, 8), dtype=np.int64).astype(np.int32)),
     )
-    got = kernels.window_match(*args)
-    want = kernels.window_match_plain(*args)
-    torch.cuda.synchronize()
-    bi, bd, b2, b2i = got
-    rbi, rbd, rb2, rb2i = want
-    uniq = rbd < rb2
-    err = max(float((bd - rbd).abs().max()), float((b2 - rb2).abs().max()))
-    dist_ok = bool(torch.equal(bd, rbd) and torch.equal(b2, rb2))
-    idx_ok = bool(torch.equal(bi[uniq], rbi[uniq]))
-    all_idx = float(((bi == rbi) & (b2i == rb2i)).float().mean())
-    print(f"window_match C={C} Q={Q} F={F}: distances equal {dist_ok}, "
-          f"best index equal where unique {idx_ok} "
-          f"({int(uniq.sum())} unique rows), all indices equal on "
-          f"{all_idx * 100:.2f}% of rows, max |diff| {err}")
-    tie = kernels.window_match_tie_rows()
-    expected = tie.pop("expected")
-    out = kernels.window_match(*(T(tie[k]) for k in (
-        "q_uv", "q_rad", "q_lmin", "q_lmax", "q_ur", "q_desc",
-        "f_xy", "f_ur", "f_level", "f_mask", "f_desc")))
-    tie_got = torch.stack([o[0] for o in out], dim=1).cpu().numpy()
-    ties_ok = bool(np.array_equal(tie_got, expected))
-    print(f"  tie rows (all-masked, single, equal, displaced best): agree {ties_ok}")
-    for row, exp in zip(tie_got.tolist(), expected.tolist()):
-        print(f"    got {row} expected {exp}")
-    if not (dist_ok and idx_ok and ties_ok):
-        raise AssertionError("window_match kernel differs from its plain version")
-    ms = cuda_ms(lambda: kernels.window_match(*args))
-    plain_ms = cuda_ms(lambda: kernels.window_match_plain(*args))
-    # every (query, feature) pair passes ~12 gate operations; only the
-    # pairs that pass them need the 256-bit distance (8 xor, 8 popcount,
-    # 8 adds) and the two compares of the running best and second
-    n_cand = int(kernels.window_match_candidates(*args[:5], *args[6:10]).sum())
-    n_bytes = sum(a.numel() * a.element_size() for a in args) + 4 * 4 * C * Q
-    print(f"  {n_cand} of {C * Q * F} pairs pass the gates")
-    return report("window_match", err, ms, plain_ms, None, n_bytes,
-                  12 * C * Q * F + 26 * n_cand)
+    # the arguments of `search.match_frame_kf_brute`: every gate open
+    Fk = 1024
+    dense = (
+        torch.zeros((C, Fk, 2), device=dev),
+        T(np.where(rng.rand(C, Fk) < 0.9, np.inf, -1.0).astype(np.float32)),
+        torch.full((C, Fk), -1, dtype=torch.int32, device=dev),
+        torch.full((C, Fk), 1 << 30, dtype=torch.int32, device=dev),
+        torch.full((C, Fk), -1e9, device=dev),
+        T(rng.randint(-2**31, 2**31, (C, Fk, 8), dtype=np.int64).astype(np.int32)),
+        torch.zeros((C, F, 2), device=dev), torch.full((C, F), -1.0, device=dev),
+        torch.zeros((C, F), dtype=torch.int32, device=dev),
+        T(rng.rand(C, F) < 0.9), args[10],
+    )
+    return args, dense
+
+
+def phase_window_match(dev, rng):
+    from multi_orb_slam_tpu_torch.ops import kernels
+
+    T = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    args, dense = window_match_inputs(dev, rng)
+    (_, Q), (_, Fk), F = args[1].shape, dense[1].shape, args[7].shape[1]
+    err = hold_window_match(f"C={C} Q={Q} F={F}", args)
+    err = max(err, hold_window_match(f"dense C={C} Q={Fk} F={F}", dense))
+    for strided in (False, True):
+        tie = kernels.window_match_tie_rows(strided=strided)
+        out = kernels.window_match(*(T(tie[k]) for k in WINDOW_MATCH_ARGS))
+        tie_got = torch.stack([o[0] for o in out], dim=1).cpu().numpy()
+        ties_ok = bool(np.array_equal(tie_got, tie["expected"]))
+        print(f"  tie rows, F = {tie['f_ur'].shape[1]}: agree {ties_ok}")
+        for row, exp in zip(tie_got.tolist(), tie["expected"].tolist()):
+            print(f"    got {row} expected {exp}")
+        if not ties_ok:
+            raise AssertionError("window_match kernel misses a hand-made tie row")
+
+    def work(a):
+        # every (query, feature) pair passes ~12 gate operations; only the
+        # pairs that pass them need the 256-bit distance (8 xor, 8 popcount,
+        # 8 adds) and the two compares of the running best and second
+        n_cand = int(kernels.window_match_candidates(*a[:5], *a[6:10]).sum())
+        n_pairs = a[1].numel() * a[7].shape[1]
+        n_bytes = sum(t.numel() * t.element_size() for t in a) + 4 * 4 * a[1].numel()
+        print(f"  {n_cand} of {n_pairs} pairs pass the gates")
+        return n_bytes, 12 * n_pairs + 26 * n_cand
+
+    print(f"window_match dense C={C} Q={Fk} F={F} (not the table's row):")
+    report("window_match", err, kernel_clocks(lambda: kernels.window_match(*dense), "window_match"),
+           cuda_ms(lambda: kernels.window_match_plain(*dense)), None, *work(dense))
+    print(f"window_match C={C} Q={Q} F={F}:")
+    return report("window_match", err,
+                  kernel_clocks(lambda: kernels.window_match(*args), "window_match"),
+                  cuda_ms(lambda: kernels.window_match_plain(*args)), None, *work(args))
 
 
 def point_sums_inputs(rng, LC, F, P, D, dev):
@@ -267,11 +375,11 @@ def phase_point_sums(dev, rng):
               f"summed vs library sum(0) max |diff| {lib_err:.2e}")
         if not equal or bool(g_k[-1].any()) or not torch.equal(g_k, g_l):
             raise AssertionError("point_sums kernel differs from its plain version")
-        ms = cuda_ms(lambda: kernels.point_sums(V, inv))
+        clocks = kernel_clocks(lambda: kernels.point_sums(V, inv), "point_sums")
         plain_ms = cuda_ms(lambda: kernels.point_sums_plain(V, inv))
         library_ms = cuda_ms(lambda: point_sums_library(V, inv))
         n_bytes = 4 * (V.numel() + inv.numel() + LC * P * D + P * D)
-        row = report("point_sums", err, ms, plain_ms, library_ms, n_bytes, LC * P * D)
+        row = report("point_sums", err, clocks, plain_ms, library_ms, n_bytes, LC * P * D)
         out = out or row
     return out
 
@@ -415,18 +523,12 @@ def phase_main_paths(dev):
                if tracking[k] <= 0]
     if missing:
         raise AssertionError(f"tracking path never launched: {missing}")
-    mapped, n_mapped, solves = run_path("orbit", frames, poses_gt, calib, cfg, mapping=True)
-    if solves == 0:
-        print(f"orbit mapped {n_mapped} keyframes and never reached local BA: "
-              f"running the circuit scene in its place")
-        del frames
-        frames, poses_gt = render_scene("circuit", calib, dev)
-        mapped, n_mapped, solves = run_path("circuit", frames, poses_gt, calib, cfg,
-                                            mapping=True)
+    mapped, _, solves = run_path("orbit", frames, poses_gt, calib, cfg, mapping=True)
     missing = [k for k, v in mapped.items() if v <= 0]
     if missing or solves == 0 or mapped["point_sums"] != solves:
-        raise AssertionError(f"mapping path: never launched {missing}; "
-                             f"{solves} local-BA solves, {mapped['point_sums']} "
+        raise AssertionError(f"mapping path on the orbit: never launched {missing}; "
+                             f"{solves} local-BA solves (none: no local BA was reached, "
+                             f"so `point_sums` never ran), {mapped['point_sums']} "
                              f"point_sums launches")
     return tracking, mapped
 

@@ -63,40 +63,49 @@ def _digest(srcs: list[Path]) -> str:
     return h.hexdigest()[:16]
 
 
-@functools.lru_cache(maxsize=None)
-def load() -> ctypes.CDLL:
-    """Compile (if needed) and load the kernel library; cached per process.
+def library_path(srcs: list[Path]) -> Path:
+    return BUILD_DIR / f"libmost_kernels_{_digest(srcs)}.so"
+
+
+def build_library(srcs: list[Path]) -> Path:
+    """Compile `srcs` (if not built yet) into one shared library; returns
+    its path.
 
     The compiler's report (`-Xptxas -v`: registers, shared memory, spills
     per kernel) is kept beside the library as `<name>.log`.
     """
-    srcs = sources()
-    lib_path = BUILD_DIR / f"libmost_kernels_{_digest(srcs)}.so"
-    if not lib_path.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-        nvcc = _nvcc()
-        t0 = time.perf_counter()
-        objs = [BUILD_DIR / f"{s.stem}.{os.getpid()}.o" for s in srcs]
-        procs = [subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-            for s, o in zip(srcs, objs)]
-        report = "".join(p.communicate()[0] for p in procs)
-        failed = [s.name for s, p in zip(srcs, procs) if p.returncode != 0]
-        if failed:
-            raise RuntimeError(f"nvcc failed on {failed}:\n{report}")
-        link = subprocess.run(
-            [nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
-            capture_output=True, text=True)
-        for o in objs:
-            o.unlink(missing_ok=True)
-        if link.returncode != 0:
-            raise RuntimeError(
-                f"nvcc link failed ({link.returncode}):\n{link.stdout}\n{link.stderr}")
-        lib_path.with_suffix(".log").write_text(
-            f"build seconds: {time.perf_counter() - t0:.2f}\n{report}")
-        os.replace(tmp, lib_path)
+    lib_path = library_path(srcs)
+    if lib_path.exists():
+        return lib_path
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
+    nvcc = _nvcc()
+    t0 = time.perf_counter()
+    objs = [BUILD_DIR / f"{lib_path.stem}.{s.stem}.{os.getpid()}.o" for s in srcs]
+    procs = [subprocess.Popen(
+        [nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for s, o in zip(srcs, objs)]
+    report = "".join(p.communicate()[0] for p in procs)
+    failed = [s.name for s, p in zip(srcs, procs) if p.returncode != 0]
+    if failed:
+        raise RuntimeError(f"nvcc failed on {failed}:\n{report}")
+    link = subprocess.run(
+        [nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+        capture_output=True, text=True)
+    for o in objs:
+        o.unlink(missing_ok=True)
+    if link.returncode != 0:
+        raise RuntimeError(
+            f"nvcc link failed ({link.returncode}):\n{link.stdout}\n{link.stderr}")
+    lib_path.with_suffix(".log").write_text(
+        f"build seconds: {time.perf_counter() - t0:.2f}\n{report}")
+    os.replace(tmp, lib_path)
+    return lib_path
+
+
+def bind(lib_path: Path) -> ctypes.CDLL:
+    """Load a kernel library and give its entry points their C types."""
     lib = ctypes.CDLL(str(lib_path))
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)
@@ -105,7 +114,18 @@ def load() -> ctypes.CDLL:
     return lib
 
 
+@functools.lru_cache(maxsize=None)
+def load() -> ctypes.CDLL:
+    """Compile (if needed) and load the port's kernel library; cached per
+    process."""
+    return bind(build_library(sources()))
+
+
 def build_log() -> str:
     """The compiler report of the loaded library ('' if not built here)."""
-    log = BUILD_DIR / f"libmost_kernels_{_digest(sources())}.log"
+    return build_log_of(library_path(sources()))
+
+
+def build_log_of(lib_path: Path) -> str:
+    log = lib_path.with_suffix(".log")
     return log.read_text() if log.exists() else ""

@@ -11,17 +11,23 @@ Counterpart of `multi_orb_slam_tpu/ops/pallas_kernels.py`.  Each kernel has
 - a launch count (`LAUNCHES[name]`), raised by one where the wrapper
   launches the kernel and nowhere else.
 
-| kernel           | replaces (pallas_kernels.py)              | source                 |
-| ---------------- | ----------------------------------------- | ---------------------- |
-| `fast_score`     | `fast_score_pallas` / `_fast_kernel`      | csrc/fast_score.cu     |
-| `gather_patches` | `gather_patches_pallas`                   | csrc/gather_patches.cu |
-| `window_match`   | `window_match_pallas` / `_window_match_kernel` | csrc/window_match.cu |
-| `point_sums`     | `point_sums_pallas` / `_point_sums_kernel` | csrc/point_sums.cu     |
+| kernel           | replaces (pallas_kernels.py)              | source                 | bound on the H100 by |
+| ---------------- | ----------------------------------------- | ---------------------- | -------------------- |
+| `fast_score`     | `fast_score_pallas` / `_fast_kernel`      | csrc/fast_score.cu     | bytes; 3.4x above them: staging, ring loads and 119 min/max a live pixel add up (4 pixels a thread, grid sized per image) |
+| `gather_patches` | `gather_patches_pallas`                   | csrc/gather_patches.cu | bytes (one block a patch) |
+| `window_match`   | `window_match_pallas` / `_window_match_kernel` | csrc/window_match.cu | instruction issue on the gates, the popcount unit when every gate is open (a warp a query, lanes over features) |
+| `point_sums`     | `point_sums_pallas` / `_point_sums_kernel` | csrc/point_sums.cu     | bytes (one thread a point value) |
+
+`window_match_split` and `fast_arcs_blocks` are CPU models of how the two
+redesigned kernels arrive at their results (lane-strided scan with a
+pairwise merge; arc extremes from block prefixes and suffixes).  The tests hold them to the plain
+versions; nothing on the main path calls them.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Sequence
 
 import numpy as np
@@ -94,16 +100,8 @@ def _extent_mask(extents: Sequence[tuple[int, int]], H: int, W: int,
     return (yy[None, :, None] < hs[:, None, None]) & (xx[None, None, :] < ws[:, None, None])
 
 
-def fast_score_plain(canvas: torch.Tensor,
-                     extents: Sequence[tuple[int, int]]) -> torch.Tensor:
-    """Zero-pad each image outside its extent, then 16 shifted slices."""
-    B, H, W = canvas.shape
-    inside = _extent_mask(extents, H, W, canvas.device)
-    img = torch.where(inside, canvas, torch.zeros_like(canvas))
-    p = torch.nn.functional.pad(img, (3, 3, 3, 3))
-    center = p[:, 3:3 + H, 3:3 + W]
-    ds = [p[:, 3 + dy:3 + dy + H, 3 + dx:3 + dx + W] - center
-          for dy, dx in FAST_OFFSETS]
+def fast_arcs_loop(ds: Sequence[torch.Tensor]) -> torch.Tensor:
+    """FAST score from the 16 ring differences: 16 arcs of 9, one by one."""
     bright = dark = None
     for k in range(16):
         amin = amax = ds[k]
@@ -113,8 +111,83 @@ def fast_score_plain(canvas: torch.Tensor,
             amax = torch.maximum(amax, d)
         bright = amin if bright is None else torch.maximum(bright, amin)
         dark = -amax if dark is None else torch.maximum(dark, -amax)
-    score = torch.maximum(bright, dark)
+    return torch.maximum(bright, dark)
+
+
+def fast_arcs_blocks(ds: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The same score as `fast_arcs_loop`, the way the CUDA kernel computes
+    it: the ring is two blocks of 8; suf[k] = min(d[k .. end of k's block]),
+    pre[k] = min(d[start of k's block .. k]), and the arc k .. k+8 is
+    min(suf[k], pre[k+8]) (indices mod 16); the maxima likewise; bright =
+    max_k arcmin[k], dark = -min_k arcmax[k]: 119 min/max in all.  min and
+    max do not round, so the two agree bit for bit."""
+    def extreme(inner, outer):
+        suf, pre = [None] * 16, [None] * 16
+        for blk in (0, 8):
+            suf[blk + 7], pre[blk] = ds[blk + 7], ds[blk]
+            for i in range(1, 8):
+                suf[blk + 7 - i] = inner(ds[blk + 7 - i], suf[blk + 8 - i])
+                pre[blk + i] = inner(ds[blk + i], pre[blk + i - 1])
+        best = None
+        for k in range(16):
+            m9 = inner(suf[k], pre[(k + 8) % 16])
+            best = m9 if best is None else outer(best, m9)
+        return best
+
+    bright = extreme(torch.minimum, torch.maximum)
+    return torch.maximum(bright, -extreme(torch.maximum, torch.minimum))
+
+
+def fast_arcs_doubling(ds: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The same score again by doubling: m2[k] = min(d[k], d[k+1]), m4[k] =
+    min(m2[k], m2[k+2]), m8[k] = min(m4[k], m4[k+4]), arc[k] = min(m8[k],
+    d[k+8]): 159 min/max.  The kernel's first redesign; `fast_arcs_blocks`
+    needs fewer and replaced it there."""
+    def extreme(inner, outer):
+        m2 = [inner(ds[k], ds[(k + 1) % 16]) for k in range(16)]
+        m4 = [inner(m2[k], m2[(k + 2) % 16]) for k in range(16)]
+        best = None
+        for k in range(16):
+            m9 = inner(inner(m4[k], m4[(k + 4) % 16]), ds[(k + 8) % 16])
+            best = m9 if best is None else outer(best, m9)
+        return best
+
+    bright = extreme(torch.minimum, torch.maximum)
+    return torch.maximum(bright, -extreme(torch.maximum, torch.minimum))
+
+
+def fast_ring_differences(canvas: torch.Tensor,
+                          extents: Sequence[tuple[int, int]]):
+    """(the 16 ring-minus-centre differences of every pixel, zeros read
+    outside each image's extent; the [B, H, W] inside-the-extent mask)."""
+    B, H, W = canvas.shape
+    inside = _extent_mask(extents, H, W, canvas.device)
+    img = torch.where(inside, canvas, torch.zeros_like(canvas))
+    p = torch.nn.functional.pad(img, (3, 3, 3, 3))
+    center = p[:, 3:3 + H, 3:3 + W]
+    ds = [p[:, 3 + dy:3 + dy + H, 3 + dx:3 + dx + W] - center
+          for dy, dx in FAST_OFFSETS]
+    return ds, inside
+
+
+def fast_score_plain(canvas: torch.Tensor,
+                     extents: Sequence[tuple[int, int]]) -> torch.Tensor:
+    """Zero-pad each image outside its extent, then 16 shifted slices."""
+    ds, inside = fast_ring_differences(canvas, extents)
+    score = fast_arcs_loop(ds)
     return torch.where(inside, score, torch.zeros_like(score))
+
+
+@functools.lru_cache(maxsize=64)
+def _extent_arrays(extents: tuple, B: int, H: int, W: int) -> tuple:
+    """The extents of a [B, H, W] canvas, checked, as two C int arrays;
+    done once per distinct argument."""
+    if len(extents) != B:
+        raise ValueError(f"{len(extents)} extents for {B} images")
+    if any(not (0 <= h <= H and 0 <= w <= W) for h, w in extents):
+        raise ValueError(f"extents {extents} leave the {H}x{W} canvas")
+    return ((ctypes.c_int * B)(*[h for h, _ in extents]),
+            (ctypes.c_int * B)(*[w for _, w in extents]))
 
 
 def fast_score(canvas: torch.Tensor,
@@ -127,16 +200,12 @@ def fast_score(canvas: torch.Tensor,
     """
     _check(canvas, "canvas", torch.float32, 3)
     B, H, W = canvas.shape
-    if len(extents) != B:
-        raise ValueError(f"{len(extents)} extents for {B} images")
+    hs, ws = _extent_arrays(tuple((int(h), int(w)) for h, w in extents), B, H, W)
     if not _route(canvas):
         return fast_score_plain(canvas, extents)
     out = torch.empty_like(canvas)
-    hs = (ctypes.c_int * B)(*[int(e[0]) for e in extents])
-    ws = (ctypes.c_int * B)(*[int(e[1]) for e in extents])
-    _launch("fast_score", "fast_score_launch", _ptr(canvas),
-            ctypes.cast(hs, ctypes.c_void_p), ctypes.cast(ws, ctypes.c_void_p),
-            _ptr(out), B, H, W)
+    _launch("fast_score", "fast_score_launch", canvas.data_ptr(),
+            ctypes.addressof(hs), ctypes.addressof(ws), out.data_ptr(), B, H, W)
     return out
 
 
@@ -244,25 +313,25 @@ def window_match(q_uv, q_rad, q_lmin, q_lmax, q_ur, q_desc,
     distance 2^20 where a query has no candidate.
     """
     f32, i32 = torch.float32, torch.int32
-    for t, n, dt, nd in ((q_uv, "q_uv", f32, 3), (q_rad, "q_rad", f32, 2),
-                         (q_lmin, "q_lmin", i32, 2), (q_lmax, "q_lmax", i32, 2),
-                         (q_ur, "q_ur", f32, 2), (q_desc, "q_desc", i32, 3),
-                         (f_xy, "f_xy", f32, 3), (f_ur, "f_ur", f32, 2),
-                         (f_level, "f_level", i32, 2),
-                         (f_mask, "f_mask", torch.bool, 2),
-                         (f_desc, "f_desc", i32, 3)):
-        _check(t, n, dt, nd)
-    C, Q = q_rad.shape
-    F = f_ur.shape[1]
-    for t, shape in ((q_uv, (C, Q, 2)), (q_lmin, (C, Q)), (q_lmax, (C, Q)),
-                     (q_ur, (C, Q)), (f_xy, (C, F, 2)), (f_ur, (C, F)),
-                     (f_level, (C, F)), (f_mask, (C, F)), (f_desc, (C, F, 8))):
-        if tuple(t.shape) != shape:
-            raise ValueError(f"shape {tuple(t.shape)}, expected {shape}")
-    if q_desc.shape[0] not in (1, C) or tuple(q_desc.shape[1:]) != (Q, 8):
-        raise ValueError(f"q_desc shape {tuple(q_desc.shape)}")
+    C, Q = q_rad.shape if q_rad.dim() == 2 else (-1, -1)
+    F = f_ur.shape[1] if f_ur.dim() == 2 else -1
     args = (q_uv, q_rad, q_lmin, q_lmax, q_ur, q_desc,
             f_xy, f_ur, f_level, f_mask, f_desc)
+    # one pass: dtype, shape (so the number of dims too) and contiguity
+    for t, name, dtype, shape in (
+            (q_uv, "q_uv", f32, (C, Q, 2)), (q_rad, "q_rad", f32, (C, Q)),
+            (q_lmin, "q_lmin", i32, (C, Q)), (q_lmax, "q_lmax", i32, (C, Q)),
+            (q_ur, "q_ur", f32, (C, Q)),
+            (q_desc, "q_desc", i32, (C, Q, 8)),
+            (f_xy, "f_xy", f32, (C, F, 2)), (f_ur, "f_ur", f32, (C, F)),
+            (f_level, "f_level", i32, (C, F)), (f_mask, "f_mask", torch.bool, (C, F)),
+            (f_desc, "f_desc", i32, (C, F, 8))):
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
+        if t.shape != shape and not (t is q_desc and t.shape == (1, Q, 8)):
+            raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: not contiguous")
     if not _route(*args):
         return window_match_plain(*args)
     out = torch.empty((4, C, Q), dtype=i32, device=q_uv.device)
@@ -270,17 +339,69 @@ def window_match(q_uv, q_rad, q_lmin, q_lmax, q_ur, q_desc,
         return out[0], out[1], out[2], out[3]
     if F == 0:
         raise ValueError("window_match needs at least one frame feature")
-    qd_stride = 0 if q_desc.shape[0] == 1 else Q * 8
+    if q_desc.data_ptr() % 16 or f_desc.data_ptr() % 16:
+        raise ValueError("q_desc and f_desc must start on a 16-byte boundary")
     _launch("window_match", "window_match_launch",
-            _ptr(q_uv), _ptr(q_rad), _ptr(q_lmin), _ptr(q_lmax), _ptr(q_ur),
-            _ptr(q_desc), ctypes.c_longlong(qd_stride), _ptr(f_xy), _ptr(f_ur),
-            _ptr(f_level), _ptr(f_mask), _ptr(f_desc), _ptr(out), C, Q, F)
+            q_uv.data_ptr(), q_rad.data_ptr(), q_lmin.data_ptr(), q_lmax.data_ptr(),
+            q_ur.data_ptr(), q_desc.data_ptr(), 0 if q_desc.shape[0] == 1 else Q * 8,
+            f_xy.data_ptr(), f_ur.data_ptr(), f_level.data_ptr(), f_mask.data_ptr(),
+            f_desc.data_ptr(), out.data_ptr(), C, Q, F)
     return out[0], out[1], out[2], out[3]
 
 
-def window_match_tie_rows() -> dict:
-    """Hand-made tie rows for window_match: queries [1, 4], frame [1, 8].
+_EMPTY_KEY = (1 << 62) - 1  # window_match_split: a slot that holds no candidate
 
+
+def window_match_split(q_uv, q_rad, q_lmin, q_lmax, q_ur, q_desc,
+                       f_xy, f_ur, f_level, f_mask, f_desc, lanes: int = 32):
+    """`window_match_plain`'s results, reached the way the CUDA kernel
+    reaches them (a model for the CPU tests; `lanes` a power of two).
+
+    A candidate is one integer key, distance << 32 | feature index, so the
+    order of the keys is the order (distance, index).  Lane l of a query
+    sees features l, l + lanes, ... and keeps its two smallest keys; then
+    log2(lanes) steps merge lane l with lane l ^ off, keeping the two
+    smallest of the four.  A slot without a candidate holds a key above all
+    others and no index: it decodes to (2^20, 0).  (The kernel's keys are 32
+    bits, with the index inside a tile of 1024 features, and it merges tile
+    by tile: the same order.)
+    """
+    if lanes < 1 or lanes & (lanes - 1):
+        raise ValueError(f"lanes {lanes} is not a power of two")
+    from . import hamming
+
+    cand = window_match_candidates(q_uv, q_rad, q_lmin, q_lmax, q_ur,
+                                   f_xy, f_ur, f_level, f_mask)
+    C, Q, F = cand.shape
+    d = hamming.pairwise_hamming(q_desc, f_desc).to(torch.int64)
+    key = torch.where(cand, (d << 32) | torch.arange(F), torch.full_like(d, _EMPTY_KEY))
+    strides = max(2, -(-F // lanes))
+    pad = torch.full((C, Q, strides * lanes - F), _EMPTY_KEY, dtype=torch.int64)
+    per_lane = torch.cat([key, pad], dim=-1).reshape(C, Q, strides, lanes)
+    two = torch.sort(per_lane, dim=2).values[:, :, :2]          # each lane's own scan
+    k1, k2 = two[:, :, 0], two[:, :, 1]                         # [C, Q, lanes]
+    lane = torch.arange(lanes)
+    off = lanes // 2
+    while off:
+        o1, o2 = k1[..., lane ^ off], k2[..., lane ^ off]
+        k1, k2 = (torch.minimum(k1, o1),
+                  torch.minimum(torch.maximum(k1, o1), torch.minimum(k2, o2)))
+        off //= 2
+    k1, k2 = k1[..., 0], k2[..., 0]
+    i32 = torch.int32
+    has1, has2 = k1 != _EMPTY_KEY, k2 != _EMPTY_KEY
+    zero, big = torch.zeros_like(k1), torch.full_like(k1, BIG)
+    return (torch.where(has1, k1 & 0xFFFFFFFF, zero).to(i32),
+            torch.where(has1, k1 >> 32, big).to(i32),
+            torch.where(has2, k2 >> 32, big).to(i32),
+            torch.where(has2, k2 & 0xFFFFFFFF, zero).to(i32))
+
+
+def window_match_tie_rows(strided: bool = False) -> dict:
+    """Hand-made tie rows for window_match; returns the numpy inputs and
+    the expected [Q, 4] outputs (best idx, best d, second d, second idx).
+
+    The first set: queries [1, 4], frame [1, 8].
     Frame features (level, position, distance from the all-zero query):
     f0 (0, origin, 2), f1 (1, origin, 3), f2 (1, origin, 3),
     f3 (0, (100, 100), 4), f4 (1, origin, 3), f5 (0, origin, 1),
@@ -291,8 +412,50 @@ def window_match_tie_rows() -> dict:
     Row 2: three equal candidates f1, f2, f4 -> (1, 3, 3, 2).
     Row 3: f0 is displaced as best by f5 and ties f6 as second; the masked
            f7 is never chosen -> (5, 1, 2, 0).
-    Returns the numpy inputs and the expected [4, 4] outputs.
+
+    `strided=True`, the second set: queries [1, 7], frame [1, 70], for a scan
+    that strides 32 lanes over the features (lane = f mod 32).  Every
+    feature sits at the origin; query r takes the features of level r + 1,
+    all others have level 0.  (feature: distance) per row:
+
+    Row 0: equal distances in one lane, f3: 5 and f35: 5 -> (3, 5, 5, 35).
+    Row 1: equal distances in three lanes, f10, f20, f41: 4 -> (10, 4, 4, 20).
+    Row 2: the best in the last, partial stride, f66: 1 beside f5: 2 and
+           f37: 2 -> (66, 1, 2, 5).
+    Row 3: a single candidate at the last feature, f69: 7 -> (69, 7, 2^20, 0).
+    Row 4: the tied seconds' lower index in the higher lane, f40: 2, f33: 6,
+           f2: 6 -> (40, 2, 6, 2).
+    Row 5: a tie across the stride's end, f31: 3 and f32: 3, while f0: 0 is
+           masked out -> (31, 3, 3, 32).
+    Row 6: no feature has level 7 -> (0, 2^20, 2^20, 0).
     """
+    if strided:
+        F = 70
+        rows = [{3: 5, 35: 5}, {10: 4, 20: 4, 41: 4}, {66: 1, 5: 2, 37: 2},
+                {69: 7}, {40: 2, 33: 6, 2: 6}, {31: 3, 32: 3, 0: 0}, {}]
+        Q = len(rows)
+        f_desc = np.zeros((1, F, 8), np.int32)
+        f_level = np.zeros((1, F), np.int32)
+        for r, feats in enumerate(rows):
+            for f, dist in feats.items():
+                f_level[0, f] = r + 1
+                f_desc[0, f, f % 8] = (1 << dist) - 1
+        f_mask = np.ones((1, F), bool)
+        f_mask[0, 0] = False
+        q_level = np.arange(1, Q + 1, dtype=np.int32)[None]
+        return dict(
+            q_uv=np.zeros((1, Q, 2), np.float32),
+            q_rad=np.ones((1, Q), np.float32),
+            q_lmin=q_level, q_lmax=q_level.copy(),
+            q_ur=np.full((1, Q), -1e9, np.float32),
+            q_desc=np.zeros((1, Q, 8), np.int32),
+            f_xy=np.zeros((1, F, 2), np.float32),
+            f_ur=np.full((1, F), -1.0, np.float32),
+            f_level=f_level, f_mask=f_mask, f_desc=f_desc,
+            expected=np.array([[3, 5, 5, 35], [10, 4, 4, 20], [66, 1, 2, 5],
+                               [69, 7, BIG, 0], [40, 2, 6, 2], [31, 3, 3, 32],
+                               [0, BIG, BIG, 0]], np.int32),
+        )
     F = 8
     dist_word = {0: (0, 0x3), 1: (1, 0x7), 2: (1, 0x7), 3: (2, 0xF),
                  4: (1, 0x7), 5: (0, 0x1), 6: (0, 0x3)}

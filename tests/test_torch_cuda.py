@@ -74,6 +74,23 @@ def test_wrappers_reject_bad_inputs(bad):
             kernels.fast_score(canvas, [(40, 50)])
 
 
+def _dense_window_args(rng, C, Q, F, dev):
+    """Every gate open, as `search.match_frame_kf_brute` calls the kernel."""
+    T = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    return (
+        torch.zeros((C, Q, 2), device=dev),
+        T(np.where(rng.rand(C, Q) < 0.9, np.inf, -1.0).astype(np.float32)),
+        torch.full((C, Q), -1, dtype=torch.int32, device=dev),
+        torch.full((C, Q), 1 << 30, dtype=torch.int32, device=dev),
+        torch.full((C, Q), -1e9, device=dev),
+        T(rng.randint(-2**31, 2**31, (C, Q, 8), dtype=np.int64).astype(np.int32)),
+        torch.zeros((C, F, 2), device=dev), torch.full((C, F), -1.0, device=dev),
+        torch.zeros((C, F), dtype=torch.int32, device=dev),
+        T(rng.rand(C, F) < 0.9),
+        T(rng.randint(-2**31, 2**31, (C, F, 8), dtype=np.int64).astype(np.int32)),
+    )
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["fast_score", "gather_patches", "window_match"])
 def test_cuda_kernel_matches_plain(name):
@@ -83,10 +100,23 @@ def test_cuda_kernel_matches_plain(name):
     rng = np.random.RandomState(2)
     before = kernels.LAUNCHES[name]
     if name == "fast_score":
-        canvas = torch.from_numpy(rng.uniform(0, 255, (3, 120, 160)).astype(np.float32)).to(dev)
-        extents = [(120, 160), (100, 133), (83, 111)]
-        assert torch.equal(kernels.fast_score(canvas, extents),
-                           kernels.fast_score_plain(canvas, extents))
+        for shape, extents in (
+                ((3, 120, 160), [(120, 160), (100, 133), (83, 111)]),
+                # whole blocks outside the extents, a 7x7 extent, an empty one
+                ((4, 96, 400), [(40, 70), (96, 130), (7, 7), (0, 0)]),
+                # every extent equal to the canvas
+                ((2, 64, 128), [(64, 128), (64, 128)]),
+                # a width that is no multiple of 4: scalar loads and stores
+                ((2, 50, 131), [(50, 131), (33, 77)])):
+            canvas = torch.from_numpy(rng.uniform(0, 255, shape).astype(np.float32)).to(dev)
+            assert torch.equal(kernels.fast_score(canvas, extents),
+                               kernels.fast_score_plain(canvas, extents)), shape
+        # a canvas that does not start on a 16-byte boundary
+        flat = torch.from_numpy(rng.uniform(0, 255, 1 + 2 * 40 * 72).astype(np.float32)).to(dev)
+        canvas = flat[1:].view(2, 40, 72)
+        assert canvas.data_ptr() % 16 and canvas.is_contiguous()
+        assert torch.equal(kernels.fast_score(canvas, [(40, 72), (21, 30)]),
+                           kernels.fast_score_plain(canvas, [(40, 72), (21, 30)]))
     elif name == "gather_patches":
         canvas = torch.from_numpy(rng.uniform(0, 255, (3, 120, 160)).astype(np.float32)).to(dev)
         idx = np.stack([rng.randint(0, 3, 200), rng.randint(0, 76, 200),
@@ -96,16 +126,44 @@ def test_cuda_kernel_matches_plain(name):
         assert torch.equal(kernels.gather_patches(canvas, idx, 45),
                            kernels.gather_patches_plain(canvas, idx, 45))
     else:
-        args = _window_args(rng, dev=dev)
-        for g, p in zip(kernels.window_match(*args), kernels.window_match_plain(*args)):
-            assert torch.equal(g, p)
-        tie = kernels.window_match_tie_rows()
-        expected = tie.pop("expected")
-        out = kernels.window_match(*[torch.from_numpy(v).to(dev) for v in tie.values()])
-        np.testing.assert_array_equal(torch.stack([o[0] for o in out], 1).cpu().numpy(),
-                                      expected)
+        # all four outputs, so both indices, on every row
+        for args in (_window_args(rng, dev=dev), _window_args(rng, Q=37, F=70, dev=dev),
+                     _window_args(rng, C=1, Q=5, F=1, dev=dev),
+                     _window_args(rng, Q=19, F=1100, dev=dev),
+                     _dense_window_args(rng, 2, 300, 256, dev),
+                     _dense_window_args(rng, 1, 1024, 1024, dev)):
+            for g, p in zip(kernels.window_match(*args), kernels.window_match_plain(*args)):
+                assert torch.equal(g, p), [tuple(a.shape) for a in args[:2]]
+        for strided in (False, True):
+            tie = kernels.window_match_tie_rows(strided=strided)
+            expected = tie.pop("expected")
+            out = kernels.window_match(*[torch.from_numpy(v).to(dev) for v in tie.values()])
+            np.testing.assert_array_equal(torch.stack([o[0] for o in out], 1).cpu().numpy(),
+                                          expected)
     torch.cuda.synchronize()
     assert kernels.LAUNCHES[name] > before
+
+
+@pytest.mark.cuda
+def test_cuda_window_match_best_in_the_last_tile():
+    """The kernel scans the frame features in tiles of 1024 with keys local
+    to the tile and folds each tile's pair into the lane's; here the best
+    and its equal sit in the sixth, partial tile, past worse candidates in
+    every earlier one."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.RandomState(5)
+    F = 5 * 1024 + 37
+    args = list(_dense_window_args(rng, 1, 3, F, "cuda"))
+    args[10][0, F - 5] = args[5][0, 1]            # query 1's own descriptor, twice
+    args[10][0, F - 2] = args[5][0, 1]
+    args[1] = torch.tensor([[np.inf, np.inf, -1.0]], device="cuda")
+    args[9] = torch.ones((1, F), dtype=torch.bool, device="cuda")
+    got = kernels.window_match(*args)
+    for g, p in zip(got, kernels.window_match_plain(*args)):
+        assert torch.equal(g, p)
+    assert [int(o[0, 1]) for o in got] == [F - 5, 0, 0, F - 2]
+    assert [int(o[0, 2]) for o in got] == [0, kernels.BIG, kernels.BIG, 0]
 
 
 @pytest.mark.cuda

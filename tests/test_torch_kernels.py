@@ -135,11 +135,7 @@ def test_window_match_distances_match_pallas_interpret():
     np.testing.assert_array_equal(bi[0][uniq], ref[0][uniq])
 
 
-def test_window_match_tie_rows():
-    """All-masked row, single-candidate row, equal-distance rows and a
-    displaced best: the port and the reference give the hand-derived
-    (best idx, best d, second d, second idx)."""
-    tie = kernels.window_match_tie_rows()
+def _hold_tie_rows(tie):
     expected = tie.pop("expected")
     got = kernels.window_match(*[torch.from_numpy(v) for v in tie.values()])
     np.testing.assert_array_equal(np.stack([g[0].numpy() for g in got], 1), expected)
@@ -147,3 +143,39 @@ def test_window_match_tie_rows():
                             else v[0]) for k, v in tie.items()]
     ref = np.stack([np.asarray(r) for r in pk.window_match_reference(*ref_args)], 1)
     np.testing.assert_array_equal(ref, expected)
+
+
+def test_window_match_tie_rows():
+    """All-masked row, single-candidate row, equal-distance rows and a
+    displaced best: the port and the reference give the hand-derived
+    (best idx, best d, second d, second idx)."""
+    _hold_tie_rows(kernels.window_match_tie_rows())
+
+
+def test_window_match_tie_rows_strided():
+    """The second set, F = 70, made for a scan that strides 32 lanes over
+    the features: ties inside a lane and across lanes, the best in the last
+    partial stride, a lone candidate at the last feature, no candidate."""
+    _hold_tie_rows(kernels.window_match_tie_rows(strided=True))
+
+
+@pytest.mark.parametrize("how", ["plain", "split"])
+@pytest.mark.parametrize("seed,L,F", [(4, 300, 256), (5, 40, 70), (6, 7, 31)])
+def test_window_match_many_ties_match_reference(seed, L, F, how):
+    """Random inputs whose descriptor words take four values, so most
+    queries meet equal distances: the plain version and the lane-strided
+    model of the CUDA kernel (32 lanes, pairwise merge) give the reference's
+    four outputs on every row, tie order included."""
+    a = _window_args(seed, L=L, F=F)
+    rng = np.random.RandomState(seed)
+    a["q_desc"] = rng.randint(0, 4, (L, 8)).astype(np.uint32)
+    a["f_desc"] = rng.randint(0, 4, (F, 8)).astype(np.uint32)
+    ref = [np.asarray(r) for r in pk.window_match_reference(
+        *[jnp.asarray(v) for v in a.values()])]
+    assert (ref[1] == ref[2]).sum() > L // 10          # tied best and second
+    args = [torch.from_numpy(np.ascontiguousarray(
+        v.view(np.int32) if v.dtype == np.uint32 else v))[None] for v in a.values()]
+    got = (kernels.window_match_plain(*args) if how == "plain"
+           else kernels.window_match_split(*args, lanes=32))
+    for g, r in zip(got, ref):
+        np.testing.assert_array_equal(g[0].numpy(), r)
