@@ -11,7 +11,9 @@ Phases (each raises on failure; the script then exits non-zero):
    the main path gives it (640x480, 2 cameras, 8 levels, 1024 features per
    camera, local-BA windows of 24 to 64 keyframe rows): `fast_score`,
    `gather_patches` and `point_sums` must be bit-equal to their plain
-   PyTorch versions; `window_match` must give equal distances and equal
+   PyTorch versions (`point_sums` at four shapes, one with a P that no tile
+   of points divides, and the same bits on a second launch); `window_match`
+   must give equal distances and equal
    best and second indices on every row, at the search shape (C = 2, Q =
    2048, F = 1024) and at the dense shape of `match_frame_kf_brute` (Q = F =
    1024, every gate open), and the expected rows of both hand-made tie sets.
@@ -38,15 +40,32 @@ Phases (each raises on failure; the script then exits non-zero):
    read just after; a path fails unless every frame tracks, ATE < 0.02 m,
    no pose or map point is NaN and every kernel of the path launched (the
    mapping path: all four, and every keyframe mapped).
-5. A JSON line of per-kernel results, then the last line
+5. System path, `system-reloc`: the 60 orbit frames through
+   `System(sensor=DUAL_RGBD, calib=..., cfg=...)` on the card (its defaults:
+   unpipelined, mapping and the loop stage on), with 3 frames blanked out
+   (grey 100, depth 0) once the vocabulary exists.  The orbit gives 4
+   keyframes in 60 frames, so the script builds the `LoopCloser` with
+   `vocab_min_descs=1500` instead of 6000 and says so.  The path fails unless
+   the state is LOST on the blank frames, a relocalization succeeds with
+   `window_match` launched inside it, the state is OK on the last frame, the
+   last pose is within 5 cm of ground truth, ATE over the tracked frames is
+   under 20 mm and all four kernels launched.  It prints each
+   relocalization's time, candidates and host reads, the vocabulary's
+   training time, and (from a second, profiled call on a copy of the lost
+   frame's inputs, after the counts were read) the time split by stage.
+   Then `save_map`, a fresh `System`, `load_map` (it comes back LOST), the
+   loaded keyframes indexed again by the script, and one frame found again.
+6. A JSON line of per-kernel results, then the last line
    `{"ok": true, "device": {...}}`.
 
 Without a CUDA device the script exits 1 before printing any result.
 """
 
+import collections
 import json
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -110,26 +129,41 @@ def cuda_ms(fn, reps=20, warmup=3):
 
 def profiled_device_ms(fn, kernel, reps=20):
     """Mean duration on the card of the device kernels whose name contains
-    `kernel`, over `reps` calls of `fn` under `torch.profiler`.  Tracing takes
-    a while to start and misses launches until then, so `reps` calls go to the
-    profiler's warm-up step first and only the next `reps` are read."""
+    `kernel`, over `reps` calls of `fn` under `torch.profiler`.
+
+    Tracing takes a while to start and misses launches until then, so `reps`
+    calls go to the profiler's warm-up step first and only the next `reps`
+    are read.  The tracer also drops records whose device timestamp falls
+    outside its window on the host clock, and the two clocks can be a
+    millisecond apart, which is longer than 20 launches of a 2 us kernel
+    take: the read launches therefore keep a pause away from both ends of
+    the window.  A try that still misses launches is made again with a
+    longer pause; the mean is taken only from a try that saw them all."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    steps = torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1)
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=acts, schedule=steps) as prof:
-        for _ in range(2):
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-            prof.step()
-    total_us, count = 0.0, 0
-    for avg in prof.key_averages():
-        if kernel in avg.key and avg.self_device_time_total > 0:
-            total_us += avg.self_device_time_total
-            count += avg.count
-    if count != reps:
-        raise AssertionError(f"profiler saw {count} launches of {kernel}, expected {reps}")
-    return total_us / count / 1e3
+    seen = []
+    for pause in (0.02, 0.1, 0.5):
+        steps = torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1)
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts, schedule=steps) as prof:
+            for active in (False, True):
+                if active:
+                    time.sleep(pause)
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+                if active:
+                    time.sleep(pause)
+                prof.step()
+        total_us, count = 0.0, 0
+        for avg in prof.key_averages():
+            if kernel in avg.key and avg.self_device_time_total > 0:
+                total_us += avg.self_device_time_total
+                count += avg.count
+        if count == reps:
+            return total_us / count / 1e3
+        seen.append(count)
+    raise AssertionError(f"profiler saw {seen} launches of {kernel} in three tries, "
+                         f"expected {reps} in each")
 
 
 def host_us(fn, reps=200):
@@ -141,6 +175,39 @@ def host_us(fn, reps=200):
     dt = time.perf_counter() - t
     torch.cuda.synchronize()
     return dt / reps * 1e6
+
+
+def read_ranges(prof, prefix, rows):
+    """Add one profile's `record_function` ranges named `prefix`* to `rows`
+    ({name: calls, host_ms, device_ops, device_ms}): the host time of each
+    range, and the device operations (kernels and copies) launched inside it
+    with their summed device time, each operation assigned to the range that
+    encloses the host call that launched it.  Returns (device ops inside a
+    range, device ops in the profile)."""
+    cpu = torch.autograd.DeviceType.CPU
+    events = list(prof.events())
+    ranges = [e for e in events if e.device_type == cpu and e.name.startswith(prefix)]
+    for r in ranges:
+        row = rows[r.name[len(prefix):]]
+        row["calls"] += 1
+        row["host_ms"] += r.time_range.elapsed_us() / 1e3
+    n_in = n_all = 0
+    for e in events:
+        if e.device_type != cpu or not e.kernels:
+            continue
+        n_all += len(e.kernels)
+        t = e.time_range.start
+        home = [r for r in ranges
+                if r.thread == e.thread and r.time_range.start <= t <= r.time_range.end]
+        if not home:
+            continue
+        # stages do not nest; the innermost range would be the shortest
+        r = min(home, key=lambda x: x.time_range.elapsed_us())
+        row = rows[r.name[len(prefix):]]
+        row["device_ops"] += len(e.kernels)
+        row["device_ms"] += sum(k.duration for k in e.kernels) / 1e3
+        n_in += len(e.kernels)
+    return n_in, n_all
 
 
 def kernel_clocks(fn, name):
@@ -355,25 +422,33 @@ def point_sums_library(V, inv):
     return g.sum(0), g
 
 
+# (LC, F, P, D): the local-BA re-layout at its smallest and largest window,
+# the reference kernel's design shape, and a P that no tile of 8 points
+# divides with more rows than one chunk of 128; the first is the one reported
+POINT_SUMS_SHAPES = ((48, 1024, 2048, 4), (128, 1024, 2048, 4), (48, 1024, 4096, 30),
+                     (130, 1024, 2045, 4))
+
+
 def phase_point_sums(dev, rng):
     from multi_orb_slam_tpu_torch.ops import kernels
 
     out = None
-    # the local-BA re-layout at its smallest and largest window, then the
-    # reference kernel's design shape; the first is the one reported
-    for LC, F, P, D in ((48, 1024, 2048, 4), (128, 1024, 2048, 4), (48, 1024, 4096, 30)):
+    for LC, F, P, D in POINT_SUMS_SHAPES:
         V, inv = point_sums_inputs(rng, LC, F, P, D, dev)
         s_k, g_k = kernels.point_sums(V, inv)
+        s_2, g_2 = kernels.point_sums(V, inv)
         s_p, g_p = kernels.point_sums_plain(V, inv)
         s_l, g_l = point_sums_library(V, inv)
         torch.cuda.synchronize()
         err = max(float((g_k - g_p).abs().max()), float((s_k - s_p).abs().max()))
         equal = bool(torch.equal(g_k, g_p) and torch.equal(s_k, s_p))
+        again = bool(torch.equal(g_k, g_2) and torch.equal(s_k, s_2))
         lib_err = float((s_k - s_l).abs().max())
         print(f"point_sums LC={LC} F={F} P={P} D={D}: gathered and summed bit-equal "
-              f"{equal}, max |diff| {err}; last row empty {not bool(g_k[-1].any())}; "
+              f"{equal}, max |diff| {err}; the same bits on a second launch {again}; "
+              f"last row empty {not bool(g_k[-1].any())}; "
               f"summed vs library sum(0) max |diff| {lib_err:.2e}")
-        if not equal or bool(g_k[-1].any()) or not torch.equal(g_k, g_l):
+        if not (equal and again) or bool(g_k[-1].any()) or not torch.equal(g_k, g_l):
             raise AssertionError("point_sums kernel differs from its plain version")
         clocks = kernel_clocks(lambda: kernels.point_sums(V, inv), "point_sums")
         plain_ms = cuda_ms(lambda: kernels.point_sums_plain(V, inv))
@@ -509,8 +584,8 @@ def run_path(name, frames, poses_gt, calib, cfg, mapping):
 
 
 def phase_main_paths(dev):
-    """The tracking-only path, then this slice's path with mapping; returns
-    the launch counts of both."""
+    """The tracking-only path, the path with mapping, then the facade's path
+    with a relocalization; returns the launch counts of the three."""
     from multi_orb_slam_tpu_torch.config import SlamConfig
     from multi_orb_slam_tpu_torch.ops import orb
 
@@ -530,7 +605,207 @@ def phase_main_paths(dev):
                              f"{solves} local-BA solves (none: no local BA was reached, "
                              f"so `point_sums` never ran), {mapped['point_sums']} "
                              f"point_sums launches")
-    return tracking, mapped
+    system = phase_system_reloc(frames, poses_gt, calib, cfg)
+    return tracking, mapped, system
+
+
+N_BLANK = 3                  # blank frames of the system path
+BLANK_AFTER_VOCAB = 4        # frames between the vocabulary's training and the blackout
+SMOKE_VOCAB_MIN_DESCS = 1500
+LAST_POSE_LIMIT_M = 0.05
+
+
+def map_gauge_centres(poses):
+    """Camera centres of world->camera poses, in the gauge of the first."""
+    poses = np.asarray(poses, np.float64)
+    return np.stack([np.linalg.inv(T @ np.linalg.inv(poses[0]))[:3, 3] for T in poses])
+
+
+def profile_relocalize(stash):
+    """The time split of one relocalization: `relocalize` again on copies of
+    the inputs of the call that found the frame, once to warm up and once
+    under `torch.profiler`, read by its "reloc/<stage>" ranges."""
+    from multi_orb_slam_tpu_torch.reloc import relocalization
+
+    relocalization.relocalize(*stash)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    ok, _, _, n = relocalization.relocalize(*stash)
+    plain_ms = (time.perf_counter() - t) * 1e3
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    rows = collections.defaultdict(
+        lambda: {"calls": 0, "host_ms": 0.0, "device_ops": 0, "device_ms": 0.0})
+    with torch.profiler.profile(activities=acts) as prof:
+        relocalization.relocalize(*stash)
+        torch.cuda.synchronize()
+    n_in, n_all = read_ranges(prof, "reloc/", rows)
+    print(f"  relocalize again on the same inputs: found {ok} with {n} inliers in "
+          f"{plain_ms:.2f} ms unprofiled; under the profiler {n_in} of {n_all} device "
+          f"operations inside a stage:")
+    print(f"    {'stage':<16}{'calls':>6}{'host ms, profiled':>19}{'device ops':>12}{'device ms':>11}")
+    for name, r in rows.items():
+        print(f"    {name:<16}{r['calls']:>6}{r['host_ms']:>19.2f}{r['device_ops']:>12}"
+              f"{r['device_ms']:>11.3f}")
+    print(f"    {'all':<16}{'':>6}{sum(r['host_ms'] for r in rows.values()):>19.2f}"
+          f"{sum(r['device_ops'] for r in rows.values()):>12}"
+          f"{sum(r['device_ms'] for r in rows.values()):>11.3f}")
+    if not ok:
+        raise AssertionError("system-reloc: the profiled relocalization did not find the frame")
+
+
+def phase_system_reloc(frames, poses_gt, calib, cfg):
+    """The facade's path: track, lose the scene, be found again; save the
+    map, load it in a fresh `System`, be found there.  Returns the launch
+    counts of the tracked sequence."""
+    from multi_orb_slam_tpu_torch import system as system_mod
+    from multi_orb_slam_tpu_torch.frontend.tracking import TrackState
+    from multi_orb_slam_tpu_torch.geometry import align
+    from multi_orb_slam_tpu_torch.loop import loop_closing
+    from multi_orb_slam_tpu_torch.ops import kernels
+    from multi_orb_slam_tpu_torch.placerec import database
+    from multi_orb_slam_tpu_torch.reloc import relocalization
+
+    def clone(nt):
+        return type(nt)(*[v.clone() if isinstance(v, torch.Tensor) else v for v in nt])
+
+    sys_ = system_mod.System(sensor=system_mod.Sensor.DUAL_RGBD, calib=calib, cfg=cfg)
+    sys_.loop_closer = loop_closing.LoopCloser(sys_.calib, cfg,
+                                               vocab_min_descs=SMOKE_VOCAB_MIN_DESCS)
+    print(f"system-reloc: System(DUAL_RGBD) on {sys_.device}, unpipelined, mapping and loop "
+          f"stage on; LoopCloser(vocab_min_descs={SMOKE_VOCAB_MIN_DESCS}) instead of "
+          f"{loop_closing.VOCAB_MIN_DESCS}: the orbit has 4 keyframes in {len(frames)} frames "
+          f"(vocabulary k = {sys_.loop_closer.vocab_k}, depth {sys_.loop_closer.vocab_depth}, "
+          f"default SlamConfig otherwise)")
+    relocs, stash = [], []
+    inner = sys_.tracker.reloc_cb
+
+    def reloc_cb(fr):
+        inputs = (sys_.tracker.map, fr, sys_.loop_closer.voc, sys_.loop_closer.db,
+                  sys_.calib, cfg)
+        if sys_.loop_closer.voc is not None and not stash:
+            # copies for the profiled call after the path (the database is
+            # written in place by later keyframes)
+            kept = tuple(clone(x) if isinstance(x, tuple) else x for x in inputs)
+        else:
+            kept = None
+        s0, l0 = dict(relocalization.STATS), dict(kernels.LAUNCHES)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = inner(fr)
+        torch.cuda.synchronize()
+        relocs.append({
+            "frame": sys_.tracker.frame_id, "ok": bool(out[0]), "inliers": int(out[3]),
+            "ms": (time.perf_counter() - t) * 1e3,
+            "candidates": relocalization.STATS["candidates"] - s0["candidates"],
+            "host_reads": relocalization.STATS["host_reads"] - s0["host_reads"],
+            "window_match": kernels.LAUNCHES["window_match"] - l0["window_match"]})
+        if out[0] and kept is not None:
+            stash.append(kept)
+        return out
+
+    sys_.tracker.reloc_cb = reloc_cb
+    blank_g = torch.full_like(frames[0][0], 100.0)
+    blank_d = torch.zeros_like(frames[0][1])
+    kernels.reset_launch_counts()
+    states, times, blank_at, vocab_at = [], [], [], None
+    for i, (g, d) in enumerate(frames):
+        if vocab_at is None and sys_.loop_closer.voc is not None:
+            vocab_at = i
+        blank = (vocab_at is not None and len(blank_at) < N_BLANK
+                 and i >= vocab_at + BLANK_AFTER_VOCAB)
+        if blank:
+            blank_at.append(i)
+            g, d = blank_g, blank_d
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        sys_.track_rgbd(g[0], d[0], g[1], d[1], timestamp=i / 30.0)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+        states.append(sys_.get_tracking_state())
+    traj = sys_.tracker.absolute_trajectory()
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+
+    n = len(frames)
+    tracked = [i for i, (*_, lost) in enumerate(traj) if not lost]
+    gt_c = map_gauge_centres(poses_gt[:n])
+    est_c = np.stack([np.linalg.inv(np.asarray(T, np.float64))[:3, 3] for _, _, T, _ in traj])
+    ate = float(align.ate_rmse(torch.from_numpy(est_c[tracked]), torch.from_numpy(gt_c[tracked])))
+    last_err = float(np.linalg.norm(est_c[-1] - gt_c[-1]))
+    st = sys_.map
+    found = [r for r in relocs if r["ok"]]
+    ms = np.asarray(times)
+    train_s = sys_.loop_closer.vocab_train_seconds
+    print(f"  vocabulary of {sys_.loop_closer.voc.n_words if sys_.loop_closer.voc else 0} words "
+          f"trained on the host in {train_s if train_s is not None else float('nan'):.2f} s, "
+          f"ready before frame {vocab_at}; blank frames {blank_at}")
+    print(f"  states {''.join(str(s) for s in states)} (1 OK, 2 LOST); frames tracked "
+          f"{len(tracked)}/{n}, keyframes {int(st.n_kf)}, map points {int(st.n_mp)}, "
+          f"keyframes indexed {int(sys_.loop_closer.db.has_bow.sum()) if sys_.loop_closer.db else 0}, "
+          f"loop candidates detected and not verified {sys_.loop_closer.n_candidates_unverified}, "
+          f"loops closed {sys_.loop_closer.n_loops_closed}")
+    print(f"  track_rgbd median {np.median(ms):.2f} ms/frame (max {ms.max():.2f}, total "
+          f"{ms.sum() / 1e3:.2f} s); ATE over the tracked frames {ate * 1e3:.3f} mm; last pose "
+          f"{last_err * 1e3:.2f} mm from ground truth")
+    for r in relocs:
+        print(f"  relocalize at frame {r['frame']}: found {r['ok']}, {r['inliers']} inliers, "
+              f"{r['ms']:.2f} ms, {r['candidates']} candidates tried, {r['host_reads']} host "
+              f"reads, {r['window_match']} window_match launches")
+    print(f"  kernel launches: {launches}")
+    for line in sys_.timing_report().splitlines():
+        print(f"    {line}")
+    if len(blank_at) != N_BLANK:
+        raise AssertionError(f"system-reloc: the vocabulary came too late (frame {vocab_at}) "
+                             f"for {N_BLANK} blank frames")
+    if any(states[i] != TrackState.LOST for i in blank_at):
+        raise AssertionError(f"system-reloc: not LOST on every blank frame: {states}")
+    if not found or found[0]["window_match"] < 2:
+        raise AssertionError(f"system-reloc: no relocalization succeeded with window_match "
+                             f"launched inside it: {relocs}")
+    if states[-1] != TrackState.OK or sorted(set(range(n)) - set(tracked)) != blank_at:
+        raise AssertionError(f"system-reloc: states {states}, tracked {tracked}")
+    if not (last_err < LAST_POSE_LIMIT_M and ate < ATE_LIMIT_M):
+        raise AssertionError(f"system-reloc: last pose {last_err:.4f} m, ATE {ate:.4f} m")
+    if not bool(torch.isfinite(st.mp_pos[st.mp_valid]).all() and torch.isfinite(st.kf_Tcw).all()):
+        raise AssertionError("system-reloc: NaN or inf in a keyframe pose or a map point")
+    missing = [k for k, v in launches.items() if v <= 0]
+    if missing:
+        raise AssertionError(f"system-reloc never launched: {missing}")
+    profile_relocalize(stash[0])
+
+    # save, load in a fresh System, be found again
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/map.ckpt"
+        sys_.save_map(path)
+        sys2 = system_mod.System(sensor=system_mod.Sensor.DUAL_RGBD, calib=calib, cfg=cfg)
+        sys2.load_map(path)
+    same = all(torch.equal(getattr(sys2.map, f), getattr(st, f)) for f in st._fields)
+    lost = sys2.get_tracking_state() == TrackState.LOST
+    # neither package keeps the vocabulary or the database in a checkpoint,
+    # and a LOST tracker inserts no keyframe that would train or fill them:
+    # the script hands the vocabulary over and indexes the loaded keyframes
+    lc2 = sys2.loop_closer
+    lc2.voc = sys_.loop_closer.voc
+    lc2.db = database.make_empty_db(cfg.max_kf, lc2.voc.n_words)
+    slots = torch.nonzero(sys2.map.kf_valid)[:, 0].tolist()
+    for k in slots:
+        lc2.db = database.add_keyframe(lc2.db, lc2.voc, sys2.map, k)
+    probe = n - 8
+    g, d = frames[probe]
+    s0 = dict(relocalization.STATS)
+    T2 = sys2.track_rgbd(g[0], d[0], g[1], d[1])
+    err2 = float(np.linalg.norm(np.linalg.inv(np.asarray(T2, np.float64))[:3, 3] - gt_c[probe]))
+    print(f"  save_map -> fresh System -> load_map: every map array equal {same}, state LOST "
+          f"{lost}; divergence kept from the reference: a checkpoint holds neither the "
+          f"vocabulary nor the database, so the script hands over the vocabulary and indexes "
+          f"the {len(slots)} loaded keyframes with add_keyframe; then frame {probe}: state "
+          f"{sys2.get_tracking_state()}, {sys2.get_tracked_map_points()} inliers, "
+          f"{relocalization.STATS['candidates'] - s0['candidates']} candidates tried, "
+          f"{err2 * 1e3:.2f} mm from ground truth")
+    if not (same and lost and sys2.get_tracking_state() == TrackState.OK
+            and err2 < LAST_POSE_LIMIT_M):
+        raise AssertionError("system-reloc: the loaded map did not find the frame again")
+    return launches
 
 
 def main():
@@ -547,13 +822,14 @@ def main():
         "window_match": phase_window_match(dev, rng),
         "point_sums": phase_point_sums(dev, rng),
     }
-    tracking, mapped = phase_main_paths(dev)
+    tracking, mapped, system = phase_main_paths(dev)
     rows = []
     for name, res in results.items():
         source, replaces = KERNELS[name]
         rows.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces, "launches": mapped[name],
-                     "launches_tracking_only": tracking[name], **res})
+                     "launches_tracking_only": tracking[name],
+                     "launches_system": system[name], **res})
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,8 @@
 """State carried between the JAX reference package and this port.
 
 `CameraParams`, `FrameData`, `MapState`, `LocalPoints`, `PoseObs`,
-`Features` and `BAProblem` have the same fields, in the same order, in both
-packages.
+`Features`, `BAProblem`, `Vocabulary` and `KeyFrameDB` have the same fields,
+in the same order, in both packages.
 `to_torch` turns a reference tuple (of jax or numpy arrays) into the port's
 tuple of tensors on a device; `to_numpy` turns a port tuple into a dict of
 numpy arrays that the reference's constructors take
@@ -25,7 +25,7 @@ import torch
 from . import resolve_device
 
 # fields holding descriptor words (uint32 in the reference, int32 here)
-DESC_FIELDS = frozenset({"desc", "kf_desc", "mp_desc", "mp_descbuf"})
+DESC_FIELDS = frozenset({"desc", "kf_desc", "mp_desc", "mp_descbuf", "node_desc"})
 
 
 def _field_to_torch(v, device):

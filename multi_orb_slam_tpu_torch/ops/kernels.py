@@ -16,12 +16,13 @@ Counterpart of `multi_orb_slam_tpu/ops/pallas_kernels.py`.  Each kernel has
 | `fast_score`     | `fast_score_pallas` / `_fast_kernel`      | csrc/fast_score.cu     | bytes; 3.4x above them: staging, ring loads and 119 min/max a live pixel add up (4 pixels a thread, grid sized per image) |
 | `gather_patches` | `gather_patches_pallas`                   | csrc/gather_patches.cu | bytes (one block a patch) |
 | `window_match`   | `window_match_pallas` / `_window_match_kernel` | csrc/window_match.cu | instruction issue on the gates, the popcount unit when every gate is open (a warp a query, lanes over features) |
-| `point_sums`     | `point_sums_pallas` / `_point_sums_kernel` | csrc/point_sums.cu     | bytes (one thread a point value) |
+| `point_sums`     | `point_sums_pallas` / `_point_sums_kernel` | csrc/point_sums.cu     | bytes, and under them the latency of a dependent pair of loads a value (a block a tile of 8 points, every (row, point) pair of a 128-row chunk in flight, rows added in order from shared memory) |
 
-`window_match_split` and `fast_arcs_blocks` are CPU models of how the two
-redesigned kernels arrive at their results (lane-strided scan with a
-pairwise merge; arc extremes from block prefixes and suffixes).  The tests hold them to the plain
-versions; nothing on the main path calls them.
+`window_match_split`, `fast_arcs_blocks` and `point_sums_tiled` are CPU
+models of how the redesigned kernels arrive at their results (lane-strided
+scan with a pairwise merge; arc extremes from block prefixes and suffixes;
+tiles of points and chunks of rows with the sum carried across chunks).  The
+tests hold them to the plain versions; nothing on the main path calls them.
 """
 
 from __future__ import annotations
@@ -503,14 +504,50 @@ def point_sums_plain(V: torch.Tensor, inv: torch.Tensor):
     return summed, gathered
 
 
+def point_sums_tiled(V: torch.Tensor, inv: torch.Tensor, tile_points: int = 8,
+                     chunk_rows: int = 128):
+    """`point_sums_plain`'s results, reached the way the CUDA kernel reaches
+    them at D = 4 (a model for the CPU tests).
+
+    A block owns `tile_points` consecutive points (the last tile may be
+    ragged) and walks the rows in chunks of `chunk_rows`: it gathers the
+    chunk's values for its tile at once (every (row, point) pair an
+    independent load), writes them to `gathered`, stages them, and then adds
+    the staged rows in ascending order into one accumulator per (point, d)
+    that it carries from chunk to chunk.  The adds are the plain version's,
+    in its order, so both outputs are bit-equal to it.
+    """
+    if tile_points < 1 or chunk_rows < 1:
+        raise ValueError(f"tile_points {tile_points}, chunk_rows {chunk_rows}")
+    LC, F, D = V.shape
+    P = inv.shape[1]
+    gathered = torch.empty((LC, P, D), dtype=V.dtype)
+    summed = torch.empty((P, D), dtype=V.dtype)
+    for p0 in range(0, P, tile_points):
+        p1 = min(p0 + tile_points, P)
+        acc = torch.zeros((p1 - p0, D), dtype=V.dtype)
+        for r0 in range(0, LC, chunk_rows):
+            r1 = min(r0 + chunk_rows, LC)
+            f = inv[r0:r1, p0:p1]
+            rows = torch.arange(r0, r1)[:, None].expand_as(f)
+            stage = V[rows, f.clamp(0, F - 1).long()]
+            stage = torch.where((f >= 0)[..., None], stage, torch.zeros_like(stage))
+            gathered[r0:r1, p0:p1] = stage
+            for r in range(r1 - r0):
+                acc = acc + stage[r]
+        summed[p0:p1] = acc
+    return summed, gathered
+
+
 def point_sums(V: torch.Tensor, inv: torch.Tensor):
     """V [LC, F, D] f32, inv [LC, P] int32 (-1 = no observation) ->
     (summed [P, D], gathered [LC, P, D]).
 
     gathered[r, p] = V[r, inv[r, p]], zeros where inv < 0; summed =
     gathered summed over r in ascending order.  Exact: a selection in
-    float32.  Any D >= 1.  An index >= F is a caller error and reads row
-    F - 1 in both versions.
+    float32.  Any D >= 1 (D = 4 with 16-byte aligned storage takes the
+    kernel's vector path, anything else its scalar path).  An index >= F is
+    a caller error and reads row F - 1 in both versions.
 
     The local-BA solver uses `gathered` (its one-time re-layout of the
     observations from feature-indexed to point-indexed rows); nothing on

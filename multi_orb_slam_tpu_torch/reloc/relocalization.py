@@ -1,0 +1,164 @@
+"""Relocalization: recover tracking after loss.
+
+Counterpart of `multi_orb_slam_tpu/reloc/relocalization.py` (which replaces
+`Tracking::Relocalization`, src/Tracking.cc:1967-2158): camera-0 BoW
+candidates from the keyframe database, brute-force descriptor matching
+against each candidate's map points, PnP RANSAC for a prior-free pose,
+motion-only BA refinement, and a projection-search top-up when inliers are
+thin (the reference's 50-inlier acceptance).
+
+The brute-force match goes through the `window_match` kernel with every
+gate open (an infinite radius, an open level range, no stereo gate), as
+`search.match_frame_kf_brute` does: its distances and first-minimum index
+are those of a dense Hamming matrix with `masked_argmin2`, in one launch.
+The top-up search is a second launch.  Each candidate costs up to four host
+reads (matches, PnP inliers, the two pose-BA inlier counts): the control
+flow is decided on the host, as in the reference.  `STATS` counts them.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..config import SlamConfig, inv_sigma2_of_level
+from ..frontend import frame as frame_mod
+from ..geometry import camera as cam_mod
+from ..mapping import map_state as ms
+from ..ops import hamming, kernels, search
+from ..optim import pose_opt
+from ..placerec import database as db_mod, vocabulary as vocab_mod
+from . import pnp
+
+MIN_BOW_MATCHES = 15     # Tracking.cc:2030
+MIN_ACCEPT_INLIERS = 50  # Tracking.cc:2144
+
+# calls, candidates tried, host reads (one per scored query, up to four per
+# candidate) and successes since import
+STATS = {"calls": 0, "candidates": 0, "host_reads": 0, "found": 0}
+
+
+def _read(x: torch.Tensor) -> int:
+    STATS["host_reads"] += 1
+    return int(x)
+
+
+def _stage(name: str):
+    """Named range around one stage (visible to `torch.profiler`).  Every
+    stage but the top-up search ends in its host read, so a range's host
+    time is the stage's wall time."""
+    return torch.profiler.record_function(f"reloc/{name}")
+
+
+def match_kf_cam0(kf_desc: torch.Tensor, kf_has_mp: torch.Tensor,
+                  frame_desc: torch.Tensor, frame_valid: torch.Tensor):
+    """Best and second-best frame feature per keyframe feature of camera 0,
+    over every valid frame feature: (best_idx, best_d, second_d), each [Fk];
+    distance 2^20 where there is no candidate."""
+    Fk, F = kf_desc.shape[0], frame_desc.shape[0]
+    dev = kf_desc.device
+    rad = torch.where(kf_has_mp, float("inf"), -1.0).to(torch.float32)
+    bi, bd, b2, _ = kernels.window_match(
+        torch.zeros((1, Fk, 2), dtype=torch.float32, device=dev),
+        rad[None].contiguous(),
+        torch.full((1, Fk), -1, dtype=torch.int32, device=dev),
+        torch.full((1, Fk), 1 << 30, dtype=torch.int32, device=dev),
+        torch.full((1, Fk), -1e9, dtype=torch.float32, device=dev),
+        kf_desc[None].contiguous(),
+        torch.zeros((1, F, 2), dtype=torch.float32, device=dev),
+        torch.full((1, F), -1.0, dtype=torch.float32, device=dev),
+        torch.zeros((1, F), dtype=torch.int32, device=dev),
+        frame_valid[None].contiguous(), frame_desc[None].contiguous())
+    return bi[0], bd[0], b2[0]
+
+
+def relocalize(
+    state: ms.MapState,
+    fr: frame_mod.FrameData,
+    voc: vocab_mod.Vocabulary,
+    db: db_mod.KeyFrameDB,
+    calib: cam_mod.CameraParams,
+    cfg: SlamConfig,
+):
+    """Try to relocalize the frame. Returns (ok, Tcw, frame_mp, n_inliers)."""
+    M = cfg.max_mp
+    dev = fr.valid.device
+    STATS["calls"] += 1
+    with _stage("candidates"):
+        candidates = db_mod.detect_relocalization_candidates(
+            db, voc, state, fr.desc[0], fr.valid[0])
+        STATS["host_reads"] += 1
+    for kf in candidates:
+        STATS["candidates"] += 1
+        # camera-0 matching against the candidate's map-point features
+        with _stage("dense_match"):
+            has = (state.kf_mp[kf][0] >= 0) & state.kf_feat_valid[kf][0]
+            bi, bd, b2 = match_kf_cam0(state.kf_desc[kf][0], has, fr.desc[0], fr.valid[0])
+            ok = (bd <= hamming.TH_LOW) & (
+                bd.to(torch.float32) <= 0.75 * b2.to(torch.float32))
+            n_matches = _read(ok.sum())
+        if n_matches < MIN_BOW_MATCHES:
+            continue
+        # build 2D-3D correspondences on frame features
+        F = fr.valid.shape[1]
+        with _stage("pnp"):
+            feat_q = search.resolve_feature_conflicts(bi, bd, ok, F)
+            mp_of_feat = torch.where(
+                feat_q >= 0,
+                state.kf_mp[kf][0][feat_q.clamp(0, F - 1).long()], -1)
+            matched = (mp_of_feat >= 0) & state.mp_valid[mp_of_feat.clamp(0, M - 1).long()]
+            uv = fr.xy_und[0]
+            Xw = state.mp_pos[mp_of_feat.clamp(0, M - 1).long()]
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(int(kf))
+            Tcw0, inl, n_inl = pnp.pnp_ransac(gen, uv, Xw, matched, calib.K[0])
+            n_inl = _read(n_inl)
+        if n_inl < 10:
+            continue
+        # motion-only BA on the PnP inliers
+        C = cfg.n_cams
+        with _stage("pose_ba_1"):
+            frame_mp = torch.full((C, F), -1, dtype=torch.int32, device=dev)
+            frame_mp[0] = torch.where(matched & inl, mp_of_feat, -1)
+            pw = state.mp_pos[frame_mp.clamp(0, M - 1).long()]
+            cam_idx = torch.arange(C, dtype=torch.int32, device=dev)[:, None].expand(C, F)
+            uvr = torch.cat([fr.xy_und, fr.uright[..., None]], dim=-1)
+            obs = pose_opt.PoseObs(
+                pw=pw.reshape(C * F, 3),
+                uvr=uvr.reshape(C * F, 3),
+                cam_idx=cam_idx.reshape(C * F),
+                inv_sigma2=inv_sigma2_of_level(fr.level, cfg).reshape(C * F),
+                mask=(frame_mp >= 0).reshape(C * F),
+            )
+            Tcw, inlier, n = pose_opt.optimize_pose(
+                Tcw0, obs, calib.T_rc, calib.K, calib.bf)
+            n = _read(n)
+        if n < 10:
+            continue
+        # projection-search top-up around the recovered pose
+        # (Tracking.cc:2090-2130: SearchByProjection with th=10)
+        with _stage("top_up_search"):
+            frame_mp = torch.where(inlier.reshape(C, F), frame_mp, -1)
+            own = state.kf_mp[kf].reshape(-1)
+            local_mask = ms.scatter_max_bool(
+                M, torch.where(own >= 0, own, M - 1), own >= 0)
+            local_mask = local_mask & state.mp_valid
+            pts = search.gather_local_points(state, local_mask, cfg.local_cap)
+            add_mp, _ = search.search_points_in_frame(
+                pts, fr.xy_und, fr.uright, fr.level, fr.desc, fr.valid,
+                frame_mp >= 0, Tcw, calib.T_rc, calib.K, calib.bf,
+                cfg.width, cfg.height, cfg.scale_factor, cfg.n_levels,
+                th_radius=10.0, nn_ratio=1.0, use_view_cos=False,
+            )
+        with _stage("pose_ba_2"):
+            merged = torch.where(frame_mp >= 0, frame_mp, add_mp)
+            pw = state.mp_pos[merged.clamp(0, M - 1).long()]
+            obs = obs._replace(
+                pw=pw.reshape(C * F, 3), mask=(merged >= 0).reshape(C * F))
+            Tcw, inlier, n = pose_opt.optimize_pose(
+                Tcw, obs, calib.T_rc, calib.K, calib.bf)
+            n = _read(n)
+        if n >= MIN_ACCEPT_INLIERS:
+            frame_mp = torch.where(inlier.reshape(C, F), merged, -1)
+            STATS["found"] += 1
+            return True, Tcw, frame_mp, n
+    return False, None, None, 0

@@ -169,10 +169,14 @@ def test_cuda_window_match_best_in_the_last_tile():
 @pytest.mark.cuda
 @pytest.mark.parametrize("LC,F,P,D", [
     (48, 1024, 2048, 4), (64, 1024, 2048, 4), (96, 1024, 2048, 4), (128, 1024, 2048, 4),
-    (48, 1024, 4096, 30), (3, 7, 5, 1)])
+    (48, 1024, 4096, 30), (3, 7, 5, 1),
+    (130, 1024, 2045, 4), (300, 64, 77, 4), (5, 16, 3, 4), (37, 50, 61, 1), (37, 50, 61, 30)])
 def test_cuda_point_sums_matches_plain(LC, F, P, D):
     """The local-BA re-layout shapes (24 to 64 keyframes x 2 cameras), the
-    reference kernel's design shape, and a ragged tiny one: bit-equal."""
+    reference kernel's design shape, a ragged tiny one, then what the tiled
+    design must get right: a P that no tile of 8 points divides, more rows
+    than one chunk of 128, fewer points than a tile, D = 1 and 30 on the
+    scalar path: bit-equal."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     rng = np.random.RandomState(LC + D)
@@ -189,6 +193,23 @@ def test_cuda_point_sums_matches_plain(LC, F, P, D):
     assert kernels.LAUNCHES["point_sums"] == before + 1
     s_k2, _ = kernels.point_sums(V, inv)
     assert torch.equal(s_k, s_k2), "summed differs from launch to launch"
+
+
+@pytest.mark.cuda
+def test_cuda_point_sums_unaligned_values_take_the_scalar_path():
+    """D = 4 values that do not start on a 16-byte boundary cannot be read
+    as float4: the launcher takes the scalar kernel, with the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.RandomState(8)
+    V0, inv = _point_sums_args(rng, 50, 256, 515, 4, "cuda")
+    flat = torch.empty(V0.numel() + 1, device="cuda")
+    V = flat[1:].view(V0.shape).copy_(V0)
+    assert V.data_ptr() % 16 and V.is_contiguous()
+    s_k, g_k = kernels.point_sums(V, inv)
+    s_p, g_p = kernels.point_sums_plain(V0, inv)
+    torch.cuda.synchronize()
+    assert torch.equal(g_k, g_p) and torch.equal(s_k, s_p)
 
 
 def _ba_problem(seed=0, n_free=6, n_fixed=4, n_pts=400, C=2, F=160, dev="cpu"):
@@ -405,3 +426,70 @@ def test_cuda_mapping_stage_runs_on_the_card():
     assert kernels.LAUNCHES["point_sums"] >= 1
     assert out["cpu"][1] == out["cuda"][1] >= 3
     assert out["cpu"][0] < 0.05 and out["cuda"][0] < 0.05, out
+
+
+@pytest.mark.cuda
+def test_cuda_relocalization_matches_cpu():
+    """A `System` tracks 12 frames of a dual 320x240 rig on the CPU (mapping
+    and the loop stage on, a small online vocabulary).  Its map, vocabulary
+    and database are copied to the card and a later frame, then a blank one,
+    are relocalized on both devices: the same `ok`, the found poses within
+    1 cm of each other (each device draws its own minimal sets) and 5 cm of
+    ground truth, and `window_match` launched twice for the found frame."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from multi_orb_slam_tpu_torch import system as system_mod
+    from multi_orb_slam_tpu_torch.config import SlamConfig
+    from multi_orb_slam_tpu_torch.frontend import frame as frame_mod
+    from multi_orb_slam_tpu_torch.geometry import camera as cam_mod, se3
+    from multi_orb_slam_tpu_torch.io import synthetic
+    from multi_orb_slam_tpu_torch.loop import loop_closing
+    from multi_orb_slam_tpu_torch.reloc import relocalization
+
+    Hh, Ww, Cc, NF = 240, 320, 2, 512
+    cfg = SlamConfig(n_cams=Cc, max_feat=NF, max_kf=32, max_mp=12288, local_cap=2048,
+                     new_mp_per_cam=128, width=Ww, height=Hh, th_depth=6.0, max_frames_kf=3,
+                     orb=orb.ORBConfig(n_features=NF))
+    T_c12 = torch.eye(4)
+    T_c12[:3, :3] = se3.so3_exp(torch.tensor([0.0, 0.9, 0.0]))
+    T_c12[:3, 3] = torch.tensor([0.16, 0.004, -0.07])
+    T_rc = torch.stack([torch.eye(4), torch.linalg.inv(T_c12)])
+    K = torch.tensor([[260.0, 260.0, 160.0, 120.0]]).repeat(Cc, 1)
+    calib = cam_mod.CameraParams(K=K, dist=torch.zeros((Cc, 5)), T_rc=T_rc,
+                                 bf=torch.tensor(20.0), width=Ww, height=Hh)
+    seq = synthetic.make_sequence(n_frames=16, K=K[0].numpy(), T_rc=T_rc.numpy(), height=Hh,
+                                  width=Ww, n_points=5000)
+    sys_ = system_mod.System(sensor=system_mod.Sensor.DUAL_RGBD, calib=calib, cfg=cfg,
+                             device="cpu")
+    sys_.loop_closer = loop_closing.LoopCloser(sys_.calib, cfg, vocab_min_descs=1200,
+                                               vocab_k=6, vocab_depth=3)
+    for g, d in zip(seq.grays[:12], seq.depths[:12]):
+        sys_.track_rgbd(g[0], d[0], g[1], d[1])
+    voc, db = sys_.loop_closer.voc, sys_.loop_closer.db
+    assert voc is not None and int(sys_.map.n_kf) >= 4
+
+    def on(nt, dev):
+        return type(nt)(*[v.to(dev) if isinstance(v, torch.Tensor) else v for v in nt])
+
+    blank = (np.full_like(seq.grays[0], 100.0), np.zeros_like(seq.depths[0]))
+    for name, (g, d) in (("frame 15", (seq.grays[15], seq.depths[15])), ("blank", blank)):
+        out = {}
+        for dev in ("cpu", "cuda"):
+            cal = on(calib, dev)
+            fr = frame_mod.build_frame(torch.from_numpy(np.asarray(g, np.float32)).to(dev),
+                                       torch.from_numpy(np.asarray(d, np.float32)).to(dev),
+                                       cal, cfg.orb)
+            before = kernels.LAUNCHES["window_match"]
+            ok, Tcw, fmp, n = relocalization.relocalize(
+                on(sys_.map, dev), fr, on(voc, dev), on(db, dev), cal, cfg)
+            out[dev] = (ok, None if Tcw is None else Tcw.cpu().numpy().astype(np.float64), n,
+                        kernels.LAUNCHES["window_match"] - before)
+        assert out["cpu"][0] == out["cuda"][0] == (name != "blank"), (name, out)
+        assert out["cpu"][3] == 0
+        if name == "blank":
+            continue
+        assert out["cuda"][3] == 2
+        c_cpu, c_gpu = (np.linalg.inv(out[dev][1])[:3, 3] for dev in ("cpu", "cuda"))
+        gt = np.linalg.inv(seq.poses_gt[15] @ np.linalg.inv(seq.poses_gt[0]))[:3, 3]
+        assert np.linalg.norm(c_cpu - c_gpu) < 0.01, (c_cpu, c_gpu)
+        assert np.linalg.norm(c_gpu - gt) < 0.05 and abs(out["cpu"][2] - out["cuda"][2]) <= 10

@@ -1,4 +1,4 @@
-"""CPU models of the two redesigned CUDA kernels against the plain versions.
+"""CPU models of the redesigned CUDA kernels against the plain versions.
 
 `window_match_split` reaches `window_match_plain`'s four outputs the way
 `csrc/window_match.cu` does: each lane scans the features l, l + lanes, ...
@@ -7,6 +7,9 @@ pairwise.  `fast_arcs_blocks` computes the sixteen arc minima and maxima as
 `csrc/fast_score.cu` does, from block prefixes and suffixes
 (`fast_arcs_doubling`: the scheme it replaced).  All must equal the plain versions
 exactly, indices included: integer outputs, and min / max do not round.
+`point_sums_tiled` walks tiles of points and chunks of rows as
+`csrc/point_sums.cu` does and carries each sum across the chunks: the same
+float32 adds in the same order, so `gathered` and `summed` are bit-equal.
 Nothing here needs the reference package.
 """
 
@@ -124,3 +127,37 @@ def test_fast_arcs_model_equals_loop(scheme, kind):
 def test_fast_score_rejects_extents_outside_the_canvas():
     with pytest.raises(ValueError):
         kernels.fast_score(torch.zeros((1, 40, 50)), [(41, 50)])
+
+
+def _point_sums_inputs(LC, F, P, D, seed):
+    rng = np.random.RandomState(seed)
+    V = rng.randn(LC, F, D).astype(np.float32)
+    inv = np.full((LC, P), -1, np.int32)
+    n = min(F, P)
+    for r in range(LC - 1):                      # the last row stays empty
+        inv[r, rng.choice(P, n, replace=False)] = rng.permutation(F)[:n]
+    return torch.from_numpy(V), torch.from_numpy(inv)
+
+
+@pytest.mark.parametrize("LC,F,P,D,tile,chunk", [
+    (48, 1024, 2048, 4, 8, 128),     # the main path: LC smaller than a chunk
+    (128, 1024, 2048, 4, 8, 128),    # the largest window: one whole chunk
+    (48, 1024, 4096, 30, 64, 8),     # the reference kernel's design shape
+    (300, 64, 77, 4, 8, 128),        # a P that no tile divides, three chunks
+    (5, 16, 3, 4, 8, 128),           # fewer points than a tile
+    (37, 50, 61, 1, 8, 16),          # D = 1, ragged tiles and chunks
+    (37, 50, 61, 30, 5, 7),
+])
+def test_point_sums_tiled_equals_plain(LC, F, P, D, tile, chunk):
+    V, inv = _point_sums_inputs(LC, F, P, D, seed=LC + P + D)
+    s_p, g_p = kernels.point_sums_plain(V, inv)
+    s_t, g_t = kernels.point_sums_tiled(V, inv, tile_points=tile, chunk_rows=chunk)
+    assert torch.equal(g_t, g_p)
+    assert torch.equal(s_t, s_p)
+    assert not g_t[-1].any()
+
+
+def test_point_sums_tiled_rejects_empty_tiles():
+    V, inv = _point_sums_inputs(3, 8, 5, 4, seed=0)
+    with pytest.raises(ValueError):
+        kernels.point_sums_tiled(V, inv, tile_points=0)

@@ -1,5 +1,5 @@
-"""Compare two builds of the port's `window_match` and `fast_score` CUDA
-kernels on one NVIDIA GPU, inside one process, in turns.
+"""Compare two builds of the port's `window_match`, `fast_score` and
+`point_sums` CUDA kernels on one NVIDIA GPU, inside one process, in turns.
 
     python3 tools/torch_kernel_compare.py --old-csrc DIR [--out REPORT.json]
 
@@ -12,7 +12,8 @@ Builds, each a library of its own:
 Both builds are first held to the plain PyTorch versions (bit-equal) on the
 inputs of `chip_smoke.py`: `fast_score` at [16, 480, 640] with the pyramid's
 extents, `window_match` at C = 2, Q = 2048, F = 1024 and at the dense shape
-of `match_frame_kf_brute` (Q = F = 1024, every gate open).  Then they are
+of `match_frame_kf_brute` (Q = F = 1024, every gate open), `point_sums` at
+the three shapes of its phase there.  Then they are
 timed in turns old, new, new, old, with no wrapper in the way: the C entry
 point is called directly, and `device_ms` is the kernel's own mean duration
 from `torch.profiler` over 20 launches.  The report gives every turn, the
@@ -37,7 +38,7 @@ import chip_smoke  # noqa: E402  (the inputs and the clocks)
 from multi_orb_slam_tpu_torch.ops import _build, kernels  # noqa: E402
 
 
-def launchers(lib, canvas, extents, wm_cases):
+def launchers(lib, canvas, extents, wm_cases, ps_cases):
     """{case: (call, kernel symbol, out tensor)} of direct C calls into `lib`."""
     B, H, W = canvas.shape
     hs = (ctypes.c_int * B)(*[e[0] for e in extents])
@@ -68,16 +69,28 @@ def launchers(lib, canvas, extents, wm_cases):
                                           Cq, Q, F, stream()), "window_match")
 
         out[label] = (match, "window_match_kernel", wm_out)
+    for label, (V, inv) in ps_cases.items():
+        LC, F, D = V.shape
+        P = inv.shape[1]
+        # one tensor for both outputs, so that one comparison holds both
+        ps_out = torch.empty(((LC + 1) * P * D,), dtype=V.dtype, device=V.device)
+
+        def sums(V=V, inv=inv, ps_out=ps_out, LC=LC, F=F, P=P, D=D):
+            check(lib.point_sums_launch(V.data_ptr(), inv.data_ptr(), ps_out.data_ptr(),
+                                        ps_out[P * D:].data_ptr(), LC, F, P, D, stream()),
+                  "point_sums")
+
+        out[label] = (sums, "point_sums_kernel", ps_out)
     return out
 
 
 def ptxas_lines(log):
-    """The compiler's lines on the `window_match` and `fast_score` kernels:
+    """The compiler's lines on the compared kernels:
     which entry, its spills, its registers and shared memory."""
     out, entry = [], None
     for ln in (x.strip() for x in log.splitlines()):
         if "Compiling entry" in ln:
-            names = [n for n in ("window_match", "fast_score") if n in ln]
+            names = [n for n in ("window_match", "fast_score", "point_sums") if n in ln]
             entry = f"{names[0]} ...{ln.split(chr(39))[1][-28:]}" if names else None
         elif entry and ("bytes spill" in ln or "Used" in ln):
             out.append(f"{entry}: {ln.replace('ptxas info    : ', '')}")
@@ -111,10 +124,15 @@ def main():
     canvas, extents = chip_smoke.fast_score_inputs(dev, rng)
     wm_args, wm_dense = chip_smoke.window_match_inputs(dev, rng)
     wm_cases = {"window_match": wm_args, "window_match dense": wm_dense}
+    ps_cases = {f"point_sums {shape}": chip_smoke.point_sums_inputs(rng, *shape, dev)
+                for shape in chip_smoke.POINT_SUMS_SHAPES[:3]}
     want = {"fast_score": kernels.fast_score_plain(canvas, extents)}
     for label, a in wm_cases.items():
         want[label] = torch.stack(kernels.window_match_plain(*a))
-    calls = {name: launchers(lib, canvas, extents, wm_cases) for name, lib in libs.items()}
+    for label, a in ps_cases.items():
+        want[label] = torch.cat([t.reshape(-1) for t in kernels.point_sums_plain(*a)])
+    calls = {name: launchers(lib, canvas, extents, wm_cases, ps_cases)
+             for name, lib in libs.items()}
     for name, cases in calls.items():
         for label, (call, _, out) in cases.items():
             out.fill_(-7)
@@ -133,7 +151,7 @@ def main():
             row = {"turn": turn, "build": name, "case": label,
                    "device_ms": chip_smoke.profiled_device_ms(call, symbol)}
             rows.append(row)
-            print(f"turn {turn} {name:4s} {label:20s} device {row['device_ms']:.5f} ms")
+            print(f"turn {turn} {name:4s} {label:34s} device {row['device_ms']:.5f} ms")
     for name, lines in ptxas.items():
         print(f"ptxas, build {name}:")
         for ln in lines:

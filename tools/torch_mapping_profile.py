@@ -37,38 +37,9 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-import chip_smoke  # noqa: E402  (the rig, the scenes and their sizes)
+import chip_smoke  # noqa: E402  (the rig, the scenes, their sizes, the range reader)
 
 PREFIX = "mapping/"
-
-
-def read_ranges(prof, rows):
-    """Add one profile's "mapping/*" ranges to `rows`; returns (device ops
-    inside a range, device ops in the profile)."""
-    cpu = torch.autograd.DeviceType.CPU
-    events = list(prof.events())
-    ranges = [e for e in events if e.device_type == cpu and e.name.startswith(PREFIX)]
-    for r in ranges:
-        row = rows[r.name[len(PREFIX):]]
-        row["calls"] += 1
-        row["host_ms"] += r.time_range.elapsed_us() / 1e3
-    n_in = n_all = 0
-    for e in events:
-        if e.device_type != cpu or not e.kernels:
-            continue
-        n_all += len(e.kernels)
-        t = e.time_range.start
-        home = [r for r in ranges
-                if r.thread == e.thread and r.time_range.start <= t <= r.time_range.end]
-        if not home:
-            continue
-        # stages do not nest; the innermost range would be the shortest
-        r = min(home, key=lambda x: x.time_range.elapsed_us())
-        row = rows[r.name[len(PREFIX):]]
-        row["device_ops"] += len(e.kernels)
-        row["device_ms"] += sum(k.duration for k in e.kernels) / 1e3
-        n_in += len(e.kernels)
-    return n_in, n_all
 
 
 def run(frames, calib, cfg, profiled):
@@ -103,7 +74,7 @@ def run(frames, calib, cfg, profiled):
             return m
         with torch.profiler.profile(activities=acts) as prof:
             m = mapping(kf_slot)
-        n_in, n_all = read_ranges(prof, rows)
+        n_in, n_all = chip_smoke.read_ranges(prof, PREFIX, rows)
         ops[0] += n_in
         ops[1] += n_all
         return m
