@@ -398,10 +398,68 @@ def phase_window_match(dev, rng):
     print(f"window_match dense C={C} Q={Fk} F={F} (not the table's row):")
     report("window_match", err, kernel_clocks(lambda: kernels.window_match(*dense), "window_match"),
            cuda_ms(lambda: kernels.window_match_plain(*dense)), None, *work(dense))
+    loop_shapes = {}
+    for role, (label, a) in window_match_loop_inputs(dev, rng).items():
+        loop_err = hold_window_match(label, a)
+        print(f"window_match {label} (loop role {role}, not the table's row):")
+        loop_shapes[role] = report(
+            "window_match", loop_err, kernel_clocks(lambda: kernels.window_match(*a), "window_match"),
+            cuda_ms(lambda: kernels.window_match_plain(*a)), None, *work(a))
+        err = max(err, loop_err)
     print(f"window_match C={C} Q={Q} F={F}:")
-    return report("window_match", err,
-                  kernel_clocks(lambda: kernels.window_match(*args), "window_match"),
-                  cuda_ms(lambda: kernels.window_match_plain(*args)), None, *work(args))
+    row = report("window_match", err,
+                 kernel_clocks(lambda: kernels.window_match(*args), "window_match"),
+                 cuda_ms(lambda: kernels.window_match_plain(*args)), None, *work(args))
+    return {**row, "loop_shapes": loop_shapes}
+
+
+def clustered_descriptors(rng, n, centers):
+    """[n, 8] int32 descriptor words around the given 256-bit centres."""
+    bits = centers[rng.randint(0, len(centers), n)] ^ (rng.rand(n, 256) < 0.08).astype(np.uint8)
+    return np.packbits(bits, axis=1).view(np.uint32).view(np.int32)
+
+
+def window_match_loop_inputs(dev, rng):
+    """{role: (label, args)}: the loop closer's three `window_match` calls
+    at the shapes of the loop path (two rig keyframes of 2 x 512 features,
+    the map's 24576 point slots), built by the loop closer's own argument
+    builders where it has them."""
+    from multi_orb_slam_tpu_torch.loop import loop_closing
+    from multi_orb_slam_tpu_torch.placerec import vocabulary
+
+    T = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    centers = rng.randint(0, 2, (200, 256)).astype(np.uint8)
+    # word-gated: C = 1, Q = F = 1024 (2 cameras x 512), real word ids of a
+    # k = 10, depth 4 vocabulary
+    voc = vocabulary.build_vocabulary(clustered_descriptors(rng, 6000, centers), k=10, depth=4,
+                                      iters=3, device=dev)
+    da, db = (T(clustered_descriptors(rng, 1024, centers)) for _ in range(2))
+    word = loop_closing.word_match_args(
+        da, T(rng.rand(1024) < 0.6), vocabulary.transform_words(voc, da),
+        db, T(rng.rand(1024) < 0.6), vocabulary.transform_words(voc, db))
+    # search_by_sim3: C = 2 (one direction a row), Q = F = 512; radius 7.5 x
+    # 1.2^level, levels [l - 1, l], a third of the landmarks invalid
+    Fs = 512
+    lvl = rng.randint(0, 8, (2, Fs)).astype(np.int32)
+    rad = np.where(rng.rand(2, Fs) < 0.66, 7.5 * 1.2 ** lvl, -1.0).astype(np.float32)
+    sim3 = (T(rng.uniform(0, W / 2, (2, Fs, 2)).astype(np.float32)), T(rad), T(lvl - 1), T(lvl),
+            torch.full((2, Fs), -1e9, device=dev), T(clustered_descriptors(rng, 2 * Fs, centers)
+                                                    .reshape(2, Fs, 8)),
+            T(rng.uniform(0, W / 2, (2, Fs, 2)).astype(np.float32)),
+            torch.full((2, Fs), -1.0, device=dev), T(rng.randint(0, 8, (2, Fs)).astype(np.int32)),
+            T(rng.rand(2, Fs) < 0.66),
+            T(clustered_descriptors(rng, 2 * Fs, centers).reshape(2, Fs, 8)))
+    # the projection count: C = 1, Q = 24576 map points, F = 512 features of
+    # camera 0, radius 8, a fifth of the points projecting usably
+    M = 24576
+    guided = loop_closing.guided_count_args(
+        T(rng.uniform(0, W / 2, (M, 2)).astype(np.float32)), T(rng.rand(M) < 0.2),
+        T(clustered_descriptors(rng, M, centers)),
+        T(rng.uniform(0, W / 2, (Fs, 2)).astype(np.float32)), T(rng.rand(Fs) < 0.9),
+        T(clustered_descriptors(rng, Fs, centers)))
+    return {"word_match": ("word-gated C=1 Q=1024 F=1024", word),
+            "search_by_sim3": ("search_by_sim3 C=2 Q=512 F=512", sim3),
+            "guided_matches": ("projection count C=1 Q=24576 F=512", guided)}
 
 
 def point_sums_inputs(rng, LC, F, P, D, dev):
@@ -742,7 +800,7 @@ def phase_system_reloc(frames, poses_gt, calib, cfg):
     print(f"  states {''.join(str(s) for s in states)} (1 OK, 2 LOST); frames tracked "
           f"{len(tracked)}/{n}, keyframes {int(st.n_kf)}, map points {int(st.n_mp)}, "
           f"keyframes indexed {int(sys_.loop_closer.db.has_bow.sum()) if sys_.loop_closer.db else 0}, "
-          f"loop candidates detected and not verified {sys_.loop_closer.n_candidates_unverified}, "
+          f"loop candidates verified {len(sys_.loop_closer.verifications)}, "
           f"loops closed {sys_.loop_closer.n_loops_closed}")
     print(f"  track_rgbd median {np.median(ms):.2f} ms/frame (max {ms.max():.2f}, total "
           f"{ms.sum() / 1e3:.2f} s); ATE over the tracked frames {ate * 1e3:.3f} mm; last pose "
@@ -808,6 +866,240 @@ def phase_system_reloc(frames, poses_gt, calib, cfg):
     return launches
 
 
+LOOP_FRAMES = 240
+LOOP_H, LOOP_W = 240, 320
+LOOP_K = (260.0, 260.0, 160.0, 120.0)
+LOOP_DRIFT = 0.15
+LOOP_ATE_LIMIT_M = 0.20
+LOOP_MAX_LOST = 2
+LOOP_GBA_OUTER = 9
+
+
+def loop_scene(dev):
+    """`tests/test_circuit_e2e.py`'s scene from the port's own renderer:
+    (calib, cfg, frames on the card, poses)."""
+    from multi_orb_slam_tpu_torch.config import SlamConfig
+    from multi_orb_slam_tpu_torch.geometry import camera as cam_mod
+    from multi_orb_slam_tpu_torch.io import synthetic
+    from multi_orb_slam_tpu_torch.ops import orb
+
+    rig = bench_rig(dev)
+    calib = cam_mod.CameraParams(
+        K=torch.tensor([LOOP_K] * C, device=dev), dist=torch.zeros((C, 5), device=dev),
+        T_rc=rig.T_rc, bf=torch.tensor(20.0, device=dev), width=LOOP_W, height=LOOP_H)
+    cfg = SlamConfig(n_cams=C, max_feat=512, width=LOOP_W, height=LOOP_H, max_frames_kf=12,
+                     th_depth=4.0, local_cap=1024, ba_local_cap=2048,
+                     orb=orb.ORBConfig(n_features=512))
+    t0 = time.perf_counter()
+    world = synthetic.make_box_world(seed=3, n_points=5000, box=(7.0, 4.0, 7.0))
+    poses = synthetic.circuit_trajectory(LOOP_FRAMES, radius=2.2, laps=1.25)
+    Kc, T_rc = np.asarray(LOOP_K, np.float32), calib.T_rc.cpu().numpy()
+    frames = []
+    for i, T in enumerate(poses):
+        s = i / (LOOP_FRAMES - 1)
+        views = [synthetic.render_rgbd(world, Kc, T_rc[c] @ T, LOOP_H, LOOP_W) for c in range(C)]
+        g = np.stack([v[0] for v in views]).astype(np.float32)
+        d = np.stack([v[1] for v in views]).astype(np.float32)
+        if 0.08 <= s < 0.60:     # the depth-scale ramp that makes odometry drift
+            d = d * (1.0 + LOOP_DRIFT * np.sin(np.pi * (s - 0.08) / 0.52))
+        frames.append((torch.from_numpy(g).to(dev), torch.from_numpy(d).to(dev)))
+    torch.cuda.synchronize()
+    print(f"loop circuit: {LOOP_FRAMES} frames x {C} cameras at {LOOP_W}x{LOOP_H} rendered in "
+          f"{time.perf_counter() - t0:.1f} s (the test's 320x240: the bench's 640x480 circuit-160 "
+          f"is not tracked to the end by either package)")
+    return calib, cfg, frames, np.asarray(poses, np.float64)
+
+
+def loop_vocabulary(frames, cfg):
+    """k = 10, depth 4, 3 iterations from camera-0 ORB of every 8th frame:
+    ORB on the card, the k-medians training on the host, as the package
+    trains it."""
+    from multi_orb_slam_tpu_torch.ops import orb
+    from multi_orb_slam_tpu_torch.placerec import vocabulary
+
+    t0 = time.perf_counter()
+    feats = [orb.extract_orb(frames[i][0][0], cfg.orb) for i in range(0, len(frames), 8)]
+    descs = np.concatenate([f.desc[f.valid].cpu().numpy() for f in feats])
+    voc = vocabulary.build_vocabulary(descs, k=10, depth=4, iters=3)
+    print(f"  vocabulary of {voc.n_words} words from {len(descs)} descriptors of {len(feats)} "
+          f"frames in {time.perf_counter() - t0:.2f} s")
+    return voc
+
+
+def gba_device_ms(state, calib, cfg):
+    """Device time of one global BA on `state`, summed over its kernels from
+    `torch.profiler`, and the number of device operations."""
+    from multi_orb_slam_tpu_torch.optim import global_ba
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        global_ba.dispatch_global_ba(state, calib, cfg, n_outer=LOOP_GBA_OUTER)
+        torch.cuda.synchronize()
+    cpu = torch.autograd.DeviceType.CPU
+    kernels = [k for e in prof.events() if e.device_type == cpu for k in e.kernels]
+    return sum(k.duration for k in kernels) / 1e3, len(kernels)
+
+
+def phase_system_loop(dev):
+    """The loop path: the circuit through `System` with loop closing and
+    global BA; returns its launch counts."""
+    from multi_orb_slam_tpu_torch import system as system_mod
+    from multi_orb_slam_tpu_torch.geometry import align
+    from multi_orb_slam_tpu_torch.loop import loop_closing
+    from multi_orb_slam_tpu_torch.ops import kernels
+    from multi_orb_slam_tpu_torch.optim import global_ba, pose_graph
+    from multi_orb_slam_tpu_torch.placerec import database
+
+    calib, cfg, frames, poses_gt = loop_scene(dev)
+    print(f"system-loop: System(DUAL_RGBD) on the card, unpipelined, mapping and loop closing "
+          f"on, run_gba=True; the test's make_cfg() (512 features, max_frames_kf=12, "
+          f"th_depth=4.0, local_cap=1024, ba_local_cap=2048, max_kf {cfg.max_kf}, max_mp "
+          f"{cfg.max_mp})")
+    voc = loop_vocabulary(frames, cfg)
+    sys_ = system_mod.System(sensor=system_mod.Sensor.DUAL_RGBD, calib=calib, cfg=cfg)
+    lc = sys_.loop_closer
+    lc.voc, lc.db = voc, database.make_empty_db(cfg.max_kf, voc.n_words)
+
+    # host clocks of the loop stages, read per closing keyframe
+    stages = collections.defaultdict(list)
+
+    def timed(name, fn, sync_after=True):
+        def inner(*a, **k):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **k)
+            if sync_after:
+                torch.cuda.synchronize()
+            stages[name].append({"frame": sys_.tracker.frame_id,
+                                 "ms": (time.perf_counter() - t) * 1e3})
+            return out
+        return inner
+
+    enqueue = global_ba.dispatch_global_ba
+
+    def dispatch(*a, **k):
+        t = time.perf_counter()
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = enqueue(*a, **k)
+        e1.record()
+        stages["dispatch_global_ba"].append({"frame": sys_.tracker.frame_id, "events": (e0, e1),
+                                             "ms": (time.perf_counter() - t) * 1e3})
+        return out
+
+    merge = lc.merge_pending_gba
+
+    def merge_timed(state):
+        if lc._gba_pending is None:
+            return merge(state)
+        return timed("merge_pending_gba", merge)(state)
+
+    lc._compute_sim3 = timed("compute_sim3", lc._compute_sim3)
+    # host time until it returns: the global BA at its end is only enqueued
+    lc._correct_loop = timed("correct_loop", lc._correct_loop, sync_after=False)
+    lc.merge_pending_gba = merge_timed
+    patched = [(pose_graph, "optimize_essential_graph",
+                timed("pose_graph", pose_graph.optimize_essential_graph)),
+               (global_ba, "dispatch_global_ba", dispatch)]
+    originals = [(mod, name, getattr(mod, name)) for mod, name, _ in patched]
+    for mod, name, fn in patched:
+        setattr(mod, name, fn)
+    roles0 = dict(loop_closing.STATS)
+    states, times = [], []
+    try:
+        kernels.reset_launch_counts()
+        for i, (g, d) in enumerate(frames):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            sys_.track_rgbd(g[0], d[0], g[1], d[1], timestamp=i / 30.0)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+            states.append(sys_.get_tracking_state())
+        sys_.shutdown()
+        traj = sys_.tracker.absolute_trajectory()
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+    finally:
+        for mod, name, fn in originals:
+            setattr(mod, name, fn)
+    roles = {k: v - roles0[k] for k, v in loop_closing.STATS.items()}
+
+    lost = [i for i, (*_, is_lost) in enumerate(traj) if is_lost]
+    fids = [fid for fid, *_ in traj]
+    est = np.stack([np.linalg.inv(np.asarray(T, np.float64))[:3, 3] for _, _, T, _ in traj])
+    gt = np.stack([np.linalg.inv(poses_gt[min(f, LOOP_FRAMES - 1)])[:3, 3] for f in fids])
+    ate = float(align.ate_rmse(torch.from_numpy(est), torch.from_numpy(gt)))
+    gt_c = map_gauge_centres(poses_gt)
+    last_err = float(np.linalg.norm(est[-1] - gt_c[fids[-1]]))
+    st = sys_.map
+    ms_ = np.asarray(times)
+    print(f"  states {''.join(str(x) for x in states)} (1 OK, 2 LOST)")
+    print(f"  frames tracked {len(traj) - len(lost)}/{len(traj)} (lost {lost}), keyframes "
+          f"{int(st.n_kf)}, map points {int(st.n_mp)}, loop candidates verified "
+          f"{len(lc.verifications)}; track_rgbd median {np.median(ms_):.2f} ms/frame (max "
+          f"{ms_.max():.2f}, total {ms_.sum() / 1e3:.2f} s)")
+    for v in lc.verifications:
+        print(f"  verification at keyframe frame {v['frame']}: kf_a {v['kf_a']} kf_b {v['kf_b']}, "
+              f"BoW pairs {v['bow']}, RANSAC inliers {v['ransac']}, LM inliers {v['lm']}, total "
+              f"{v['total']}, closed {v['accepted']}")
+    gba_ms = []
+    for rec in stages["dispatch_global_ba"]:
+        e0, e1 = rec.pop("events")
+        gba_ms.append(e0.elapsed_time(e1))
+    for name in ("compute_sim3", "correct_loop", "pose_graph", "dispatch_global_ba",
+                 "merge_pending_gba"):
+        rows = stages[name]
+        shown = [f"{r['ms']:.2f} at frame {r['frame']}" for r in rows]
+        print(f"  host ms of {name}: {', '.join(shown) if shown else 'never called'}")
+    print(f"  global BA on the device, events from before its dispatch to after its last "
+          f"launch: {', '.join(f'{x:.2f} ms' for x in gba_ms) or 'none'}")
+    print(f"  n_loops_closed {lc.n_loops_closed}, n_gba_merged {lc.n_gba_merged} after "
+          f"shutdown(); ATE over all {len(traj)} frames {ate:.4f} m, last pose {last_err:.4f} m "
+          f"from ground truth")
+    print(f"  window_match launches by loop role: {roles}")
+    print(f"  kernel launches: {launches}")
+    for line in sys_.timing_report().splitlines():
+        print(f"    {line}")
+
+    # the dispatch once more on a copy of the final map: no host synchronisation
+    copy = type(st)(*[v.clone() for v in st])
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        Tcw_g, pos_g = global_ba.dispatch_global_ba(copy, calib, cfg, n_outer=LOOP_GBA_OUTER)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    host_ms = (time.perf_counter() - t) * 1e3
+    torch.cuda.synchronize()
+    done_ms = (time.perf_counter() - t) * 1e3
+    finite = bool(torch.isfinite(Tcw_g).all() and torch.isfinite(pos_g[copy.mp_valid]).all())
+    dev_ms, n_ops = gba_device_ms(copy, calib, cfg)
+    print(f"  dispatch_global_ba under torch.cuda.set_sync_debug_mode('error'): no host "
+          f"synchronisation; returned after {host_ms:.2f} ms of host time, done on the device "
+          f"{done_ms:.2f} ms after the call; result finite {finite}; under torch.profiler "
+          f"{n_ops} device operations, {dev_ms:.3f} ms of device time")
+
+    failures = []
+    if len(lost) > LOOP_MAX_LOST:
+        failures.append(f"{len(lost)} of {len(traj)} frames lost")
+    if lc.n_loops_closed < 1 or lc.n_gba_merged < 1:
+        failures.append(f"{lc.n_loops_closed} loops closed, {lc.n_gba_merged} GBAs merged")
+    if not ate < LOOP_ATE_LIMIT_M:
+        failures.append(f"ATE {ate:.4f} m >= {LOOP_ATE_LIMIT_M} m")
+    if any(v <= 0 for v in roles.values()):
+        failures.append(f"a loop role never launched window_match: {roles}")
+    missing = [k for k, v in launches.items() if v <= 0]
+    if missing:
+        failures.append(f"never launched: {missing}")
+    if not (finite and bool(torch.isfinite(st.kf_Tcw).all())):
+        failures.append("NaN or inf in a pose or a point")
+    if failures:
+        raise AssertionError("system-loop: " + "; ".join(failures))
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -823,13 +1115,14 @@ def main():
         "point_sums": phase_point_sums(dev, rng),
     }
     tracking, mapped, system = phase_main_paths(dev)
+    loop = phase_system_loop(dev)
     rows = []
     for name, res in results.items():
         source, replaces = KERNELS[name]
         rows.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces, "launches": mapped[name],
                      "launches_tracking_only": tracking[name],
-                     "launches_system": system[name], **res})
+                     "launches_system": system[name], "launches_loop": loop[name], **res})
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

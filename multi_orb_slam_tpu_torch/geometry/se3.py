@@ -97,8 +97,8 @@ def from_rt(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     R = R.expand(batch + (3, 3))
     t = t.expand(batch + (3,))
     top = torch.cat([R, t[..., :, None]], dim=-1)
-    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=R.dtype,
-                          device=R.device).expand(batch + (4,))
+    # the last row of the identity, made on the device (no host copy)
+    bottom = torch.eye(4, dtype=R.dtype, device=R.device)[3].expand(batch + (4,))
     return torch.cat([top, bottom[..., None, :]], dim=-2)
 
 

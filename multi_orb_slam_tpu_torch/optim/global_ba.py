@@ -1,0 +1,264 @@
+"""Global bundle adjustment, matrix-free Schur complement + preconditioned CG.
+
+Counterpart of `multi_orb_slam_tpu/optim/global_ba.py` (which replaces
+`Optimizer::GlobalBundleAdjustemnt`): every keyframe free but the first, every
+point marginalized.  The reduced camera system
+
+    S dx = (H_cc - W H_pp^-1 W^T) dx
+
+is applied matrix-free: each matvec gathers pose blocks to the observations,
+scatters U_n^T x to the points (`index_add_`), applies H_pp^-1, and scatters
+back to the poses; block-Jacobi preconditioned CG solves it (60 iterations).
+
+`dispatch_global_ba` only enqueues work on the device: it reads nothing back
+to the host.  To that end the 3x3 point inverses are closed form, the 6x6
+preconditioner is `torch.linalg.inv_ex` (no error check), the annealed
+gate's quantile is a sort and a written-out linear interpolation, and the
+loops have fixed trip counts with accept / reject as `torch.where`.  The
+scatters accumulate with atomics on the card, so card and CPU agree to a
+tolerance, not to the bit.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..config import SlamConfig, inv_sigma2_of_level
+from ..geometry import se3
+from . import residuals
+from .pose_opt import CHI2_MONO, CHI2_STEREO
+
+CG_ITERS = 60
+
+
+def _damp_blocks(H, lam):
+    d = torch.diagonal(H, dim1=-2, dim2=-1)
+    tr = torch.sum(d, dim=-1, keepdim=True)
+    dd = lam * d + 1e-6 * tr + 1e-9
+    return H + torch.diag_embed(dd)
+
+
+def inv3(A: torch.Tensor) -> torch.Tensor:
+    """Inverse of (..., 3, 3) matrices by the adjugate (no error check)."""
+    c0 = torch.cross(A[..., 1, :], A[..., 2, :], dim=-1)
+    c1 = torch.cross(A[..., 2, :], A[..., 0, :], dim=-1)
+    c2 = torch.cross(A[..., 0, :], A[..., 1, :], dim=-1)
+    det = torch.sum(A[..., 0, :] * c0, dim=-1)
+    return torch.stack([c0, c1, c2], dim=-1) / det[..., None, None]
+
+
+def make_global_ba(cfg: SlamConfig):
+    """The global BA function for a configuration: `step(kf_Tcw, kf_valid,
+    kf_free, kf_mp, obs_uvr, obs_is2, mp_pos, mp_valid, T_rc, K_intr, bf,
+    n_outer, cg_iters)` -> (Tcw, pos)."""
+
+    def step(kf_Tcw, kf_valid, kf_free, kf_mp, obs_uvr, obs_is2,
+             mp_pos, mp_valid, T_rc, K_intr, bf, n_outer, cg_iters):
+        K, C, F = kf_mp.shape
+        M = mp_pos.shape[0]
+        N = K * C * F
+        dev, dtype = mp_pos.device, mp_pos.dtype
+
+        obs_kf = torch.arange(K, device=dev)[:, None, None].expand(K, C, F).reshape(N)
+        obs_mp = kf_mp.reshape(N)
+        uvr = obs_uvr.reshape(K, C, F, 3)
+        is2 = obs_is2.reshape(N)
+        mp_idx = obs_mp.clamp(0, M - 1).long()
+        obs_ok = (obs_mp >= 0) & kf_valid[obs_kf] & mp_valid[mp_idx]
+        free_f = kf_free.to(dtype)
+        # float32 square roots of the float32 gates, as the reference takes them
+        delta_m = float(np.sqrt(np.float32(CHI2_MONO)))
+        delta_s = float(np.sqrt(np.float32(CHI2_STEREO)))
+        eye3 = torch.eye(3, dtype=dtype, device=dev)
+        eye6 = torch.eye(6, dtype=dtype, device=dev)
+
+        def residual_state(Tcw_all, pos_all, want_jac=True):
+            # pose and extrinsic enter as [K,1,1] / [1,C,1] broadcasts over
+            # the [K, C, F] layout
+            e, Jc, Jp, is_st, posd = residuals.reproj_residual(
+                Tcw_all[:, None, None], pos_all[mp_idx].reshape(K, C, F, 3),
+                T_rc[None, :, None], K_intr[None, :, None], bf, uvr, want_jac=want_jac)
+            if want_jac:
+                Jc, Jp = Jc.reshape(N, 3, 6), Jp.reshape(N, 3, 3)
+            return e.reshape(N, 3), Jc, Jp, is_st.reshape(N), posd.reshape(N)
+
+        def scatter(n_rows, idx, v):
+            out = torch.zeros((n_rows,) + v.shape[1:], dtype=dtype, device=dev)
+            return out.index_add_(0, idx, v)
+
+        def rho(c2, delta):
+            r = torch.sqrt(torch.clamp(c2, min=1e-12))
+            return torch.where(r > delta, delta * (2 * r - delta), c2)
+
+        Tcw_all, pos_all = kf_Tcw, mp_pos
+        lam = torch.full((), 1e-4, dtype=dtype, device=dev)
+        for _ in range(n_outer):
+            e, Jc, Jp, is_st, posd = residual_state(Tcw_all, pos_all)
+            act = obs_ok & posd
+            row = residuals.row_weights(is_st, dtype)
+            chi2 = torch.sum(e * e * row, -1) * is2
+            delta = torch.where(is_st, delta_s, delta_m)
+            r = torch.sqrt(torch.clamp(chi2, min=1e-12))
+            hw = torch.where(r > delta, delta / r, 1.0)
+            Wr = row * (is2 * hw * act.to(dtype))[:, None]
+
+            Jc_eff = Jc * free_f[obs_kf][:, None, None]
+            JTcW = Jc_eff * Wr[:, :, None]
+            JTpW = Jp * Wr[:, :, None]
+            Hcc = scatter(K, obs_kf, residuals.outer_rows(JTcW, Jc_eff))
+            bc = scatter(K, obs_kf, residuals.jte_rows(JTcW, e))
+            Hpp = scatter(M, mp_idx, residuals.outer_rows(JTpW, Jp))
+            bp = scatter(M, mp_idx, residuals.jte_rows(JTpW, e))
+            # per-observation camera-point coupling block U_n [6, 3]
+            U = residuals.outer_rows(JTcW, Jp)
+
+            Hcc_d = _damp_blocks(Hcc, lam)
+            Hpp_d = _damp_blocks(Hpp, lam) + torch.where(
+                mp_valid, 0.0, 1.0)[:, None, None] * eye3
+            Hpp_inv = inv3(Hpp_d)
+
+            def S_matvec(x):  # x [K, 6]
+                y = scatter(M, mp_idx, residuals.bmtv(U, x[obs_kf]))     # sum U^T x -> [M, 3]
+                z = residuals.bmv(Hpp_inv, y)
+                WHWx = scatter(K, obs_kf, residuals.bmv(U, z[mp_idx]))   # sum U z -> [K, 6]
+                return (residuals.bmv(Hcc_d, x) - WHWx) * free_f[:, None]
+
+            # rhs = bc - W Hpp_inv bp
+            zb = residuals.bmv(Hpp_inv, bp)
+            rhs = (bc - scatter(K, obs_kf, residuals.bmv(U, zb[mp_idx]))) * free_f[:, None]
+
+            # block-Jacobi preconditioner from the damped Hcc
+            Pinv = torch.linalg.inv_ex(
+                Hcc_d + torch.where(kf_free, 0.0, 1.0)[:, None, None] * eye6)[0]
+
+            def precond(v):
+                return residuals.bmv(Pinv, v) * free_f[:, None]
+
+            # PCG for S dx = -rhs
+            x = torch.zeros((K, 6), dtype=dtype, device=dev)
+            rr = -rhs
+            p = precond(rr)
+            rz = torch.sum(rr * p)
+            for _ in range(cg_iters):
+                Sp = S_matvec(p)
+                pSp = torch.sum(p * Sp)
+                alpha = rz / torch.where(torch.abs(pSp) < 1e-20, 1e-20, pSp)
+                x = x + alpha * p
+                rr = rr - alpha * Sp
+                z = precond(rr)
+                rz_new = torch.sum(rr * z)
+                beta = rz_new / torch.where(torch.abs(rz) < 1e-20, 1e-20, rz)
+                p = z + beta * p
+                rz = rz_new
+            dxc = x * free_f[:, None]
+
+            # back-substitute points: dp = -Hpp_inv (bp + W^T dxc)
+            WTdx = scatter(M, mp_idx, residuals.bmtv(U, dxc[obs_kf]))
+            dp = -residuals.bmv(Hpp_inv, bp + WTdx) * mp_valid[:, None]
+
+            Tcw_new = se3.exp(dxc) @ Tcw_all
+            pos_new = pos_all + dp
+            e2, _, _, _, posd2 = residual_state(Tcw_new, pos_new, want_jac=False)
+            chi2n = torch.sum(e2 * e2 * row, -1) * is2
+            tot_new = torch.sum(torch.where(obs_ok & posd2, rho(chi2n, delta), 0.0))
+            tot_old = torch.sum(torch.where(act, rho(chi2, delta), 0.0))
+            accept = tot_new < tot_old
+            Tcw_all = torch.where(accept, Tcw_new, Tcw_all)
+            pos_all = torch.where(accept, pos_new, pos_all)
+            lam = torch.clamp(torch.where(accept, lam * 0.5, lam * 5.0), 1e-9, 1e8)
+        return Tcw_all, pos_all
+
+    return step
+
+
+def sorted_quantile(c: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """`jnp.quantile(c, q)` (linear interpolation) of a 1-D tensor for a
+    0-dim tensor q, with no host read: sort, then the two neighbours of
+    position q * (n - 1) weighted as the reference weighs them.  NaN if any
+    entry is NaN."""
+    n = c.shape[0]
+    srt = torch.sort(c).values
+    pos = q * (n - 1)
+    low, high = torch.floor(pos), torch.ceil(pos)
+    w_high = pos - low
+    w_low = 1.0 - w_high
+    # index_select with a 1-element index: indexing with a 0-dim tensor
+    # would read it back to the host
+    lo = srt.index_select(0, low.clamp(0, n - 1).long().reshape(1))[0]
+    hi = srt.index_select(0, high.clamp(0, n - 1).long().reshape(1))[0]
+    out = lo * w_low + hi * w_high
+    return torch.where(torch.isnan(c).any(), float("nan"), out)
+
+
+def _chi2_gate(kf_Tcw, kf_mp, obs_uvr, obs_is2, mp_pos, T_rc, K_intr, bf,
+               scale=1.0, keep_frac=None):
+    K, C, F = kf_mp.shape
+    M = mp_pos.shape[0]
+    N = K * C * F
+    mp_idx = kf_mp.reshape(N).clamp(0, M - 1).long()
+    e, _, _, is_st, posd = residuals.reproj_residual(
+        kf_Tcw[:, None, None], mp_pos[mp_idx].reshape(K, C, F, 3),
+        T_rc[None, :, None], K_intr[None, :, None], bf,
+        obs_uvr.reshape(K, C, F, 3), want_jac=False)
+    e, is_st, posd = e.reshape(N, 3), is_st.reshape(N), posd.reshape(N)
+    row = residuals.row_weights(is_st, e.dtype)
+    chi2 = torch.sum(e * e * row, -1) * obs_is2.reshape(N)
+    th = torch.where(is_st, CHI2_STEREO, CHI2_MONO) * scale
+    if keep_frac is not None:
+        # never drop more than (1 - keep_frac) of the valid observations:
+        # early stages must not mistake a large initial perturbation for
+        # outliers (the threshold floors at the keep_frac quantile)
+        valid = kf_mp.reshape(N) >= 0
+        c = torch.where(valid, chi2, -1.0)
+        q = 1.0 - (1.0 - keep_frac) * torch.mean(valid.to(chi2.dtype))
+        th = torch.maximum(th, sorted_quantile(c, q))
+    return ((chi2 <= th) & posd).reshape(K, C, F)
+
+
+def run_global_ba_arrays(state_arrays, calib_arrays, kf_free, cfg: SlamConfig,
+                         n_outer: int = 10):
+    """The annealed global BA on plain arrays: before each of three stages
+    the observations are re-gated at the CURRENT state with a loosening ->
+    strict chi2 scale (64, 8, 1; the first two floored at the 98% and 97%
+    quantiles), then `n_outer // 3`, `n_outer // 3` and the rest of the
+    outer LM iterations run."""
+    (kf_Tcw, kf_valid, kf_mp, obs_uvr, obs_is2, mp_pos, mp_valid) = state_arrays
+    (T_rc, K_intr, bf) = calib_arrays
+    fn = make_global_ba(cfg)
+    Tcw, pos = kf_Tcw, mp_pos
+    stages = [(64.0, 0.98, max(n_outer // 3, 1)),
+              (8.0, 0.97, max(n_outer // 3, 1)),
+              (1.0, None, max(n_outer - 2 * (n_outer // 3), 1))]
+    for scale, keep_frac, iters in stages:
+        gate = _chi2_gate(Tcw, kf_mp, obs_uvr, obs_is2, pos,
+                          T_rc, K_intr, bf, scale=scale, keep_frac=keep_frac)
+        Tcw, pos = fn(Tcw, kf_valid, kf_free, torch.where(gate, kf_mp, -1),
+                      obs_uvr, obs_is2, pos, mp_valid, T_rc, K_intr, bf,
+                      iters, CG_ITERS)
+    return Tcw, pos
+
+
+def dispatch_global_ba(state, calib, cfg: SlamConfig, n_outer: int = 10):
+    """Enqueue full-map BA on the device; return (kf_Tcw, mp_pos), which
+    the device fills in later.  No host read: the caller keeps working
+    against the old map and folds these in later
+    (`LoopCloser.merge_pending_gba`), the counterpart of the reference's
+    GBA thread (src/LoopClosing.cc:812)."""
+    K = state.kf_valid.shape[0]
+    kf_free = state.kf_valid & (torch.arange(K, device=state.kf_valid.device) != 0)
+    obs_uvr = torch.cat([state.kf_xy_und, state.kf_uright[..., None]], dim=-1)
+    obs_is2 = inv_sigma2_of_level(state.kf_level, cfg)
+    # mask invalid feature slots out of the problem
+    kf_mp = torch.where(state.kf_feat_valid, state.kf_mp, -1)
+    return run_global_ba_arrays(
+        (state.kf_Tcw, state.kf_valid, kf_mp, obs_uvr, obs_is2,
+         state.mp_pos, state.mp_valid),
+        (calib.T_rc, calib.K, calib.bf), kf_free, cfg, n_outer)
+
+
+def run_global_ba(state, calib, cfg: SlamConfig, n_outer: int = 10):
+    """Full-map BA (the reference's GBA: first keyframe fixed).  Returns the
+    updated MapState."""
+    Tcw, pos = dispatch_global_ba(state, calib, cfg, n_outer)
+    return state._replace(kf_Tcw=Tcw, mp_pos=pos)

@@ -94,6 +94,5 @@ def jte_rows(A: torch.Tensor, e: torch.Tensor) -> torch.Tensor:
 
 def row_weights(is_stereo: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
     """[..., 3] row mask: mono rows drop the virtual-right residual."""
-    ones = torch.ones(is_stereo.shape + (3,), dtype=dtype, device=is_stereo.device)
-    mono = torch.tensor([1.0, 1.0, 0.0], dtype=dtype, device=is_stereo.device).expand(ones.shape)
-    return torch.where(is_stereo[..., None], ones, mono)
+    one = torch.ones_like(is_stereo, dtype=dtype)
+    return torch.stack([one, one, is_stereo.to(dtype)], dim=-1)

@@ -6,10 +6,11 @@ files or from `calib` + `cfg`, `track_rgbd`, localization mode switching,
 reset, shutdown, trajectory savers, map checkpoints.  The reference's three
 free-running threads are a deterministic staged pipeline: the tracking step
 runs inline; the mapping stage runs at each keyframe insertion; the loop
-stage runs after mapping (`loop/`: it indexes the keyframe for place
-recognition and detects loop candidates; loops are detected and not closed
-yet, see `loop/loop_closing.py`).  A lost tracker is found again by
-`reloc/relocalization.py` against the loop stage's vocabulary and database.
+stage runs after mapping (`loop/loop_closing.py`: it indexes the keyframe
+for place recognition, detects, verifies and corrects loops, and enqueues a
+global BA that merges into the map at the next keyframe or at `shutdown`).
+A lost tracker is found again by `reloc/relocalization.py` against the loop
+stage's vocabulary and database.
 
 The system runs on the CUDA device unless the caller asks for another one
 (`device="cpu"`, as the CPU tests do); with `device=None` and no CUDA device
@@ -133,7 +134,9 @@ class System:
             self._covis_pending = local_mapping.covis_kf_count(m, kf_slot)
         if self.loop_closer is not None:
             n_loops_before = self.loop_closer.n_loops_closed
-            pose_mid = m.kf_Tcw[kf_slot]
+            # a copy, not a view: the loop stage replaces kf_Tcw, and the
+            # correction below is taken against the pose from before it
+            pose_mid = m.kf_Tcw[kf_slot].clone()
             with self.metrics.span("loop_stage"):
                 m = self.loop_closer.process_keyframe(m, kf_slot)
             if self.loop_closer.n_loops_closed > n_loops_before:

@@ -493,3 +493,161 @@ def test_cuda_relocalization_matches_cpu():
         gt = np.linalg.inv(seq.poses_gt[15] @ np.linalg.inv(seq.poses_gt[0]))[:3, 3]
         assert np.linalg.norm(c_cpu - c_gpu) < 0.01, (c_cpu, c_gpu)
         assert np.linalg.norm(c_gpu - gt) < 0.05 and abs(out["cpu"][2] - out["cuda"][2]) <= 10
+
+
+# ---------------------------------------------------------------------------
+# loop closing: the three window_match roles and global BA on the card
+# ---------------------------------------------------------------------------
+
+
+def _loop_role_args(role, rng, dev):
+    """Random `window_match` arguments as each loop role builds them: the
+    word-gated match and the projection count through the loop closer's own
+    builders, `search_by_sim3`'s two directions as one C = 2 call."""
+    from multi_orb_slam_tpu_torch.loop import loop_closing
+
+    T = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    desc = lambda n: T(rng.randint(0, 4, (n, 8)).astype(np.int32))  # noqa: E731  (many ties)
+    if role == "word_match":
+        words = np.array([0, 7, 999_999, 123_456], np.int32)
+        return loop_closing.word_match_args(
+            desc(700), T(rng.rand(700) < 0.8), T(words[rng.randint(0, 4, 700)]),
+            desc(650), T(rng.rand(650) < 0.8), T(words[rng.randint(0, 4, 650)]))
+    if role == "guided_matches":
+        Q, F = 5000, 300
+        return loop_closing.guided_count_args(
+            T(rng.uniform(0, 60, (Q, 2)).astype(np.float32)), T(rng.rand(Q) < 0.5), desc(Q),
+            T(rng.uniform(0, 60, (F, 2)).astype(np.float32)), T(rng.rand(F) < 0.9), desc(F))
+    F = 400
+    lvl = rng.randint(0, 8, (2, F)).astype(np.int32)
+    return (T(rng.uniform(0, 100, (2, F, 2)).astype(np.float32)),
+            T(np.where(rng.rand(2, F) < 0.7, 7.5 * 1.2 ** lvl, -1.0).astype(np.float32)),
+            T(lvl - 1), T(lvl), torch.full((2, F), -1e9, device=dev), desc(2 * F).reshape(2, F, 8),
+            T(rng.uniform(0, 100, (2, F, 2)).astype(np.float32)), torch.full((2, F), -1.0, device=dev),
+            T(rng.randint(0, 8, (2, F)).astype(np.int32)), T(rng.rand(2, F) < 0.7),
+            desc(2 * F).reshape(2, F, 8))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("role", ["word_match", "search_by_sim3", "guided_matches"])
+def test_cuda_loop_role_matches_plain(role):
+    """Each of the loop closer's `window_match` calls: the kernel's four
+    outputs equal the plain version's on every row."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    args = _loop_role_args(role, np.random.RandomState(11), "cuda")
+    before = kernels.LAUNCHES["window_match"]
+    got = kernels.window_match(*args)
+    for g, p in zip(got, kernels.window_match_plain(*args)):
+        assert torch.equal(g, p), role
+    assert kernels.LAUNCHES["window_match"] == before + 1
+    assert int((got[1] < kernels.BIG).sum()) > 10
+
+
+def _gba_map(dev, seed=0, K=8, C=2, F=160, M=600):
+    """A map made with numpy for global BA: K rig keyframes along a line,
+    points in front of them, every point seen where it projects (stereo
+    where depth < 4 m, pixel noise 0.3), then all keyframes but slot 0 and
+    all points perturbed.  Returns (state, calib, cfg)."""
+    from multi_orb_slam_tpu_torch.config import SlamConfig
+    from multi_orb_slam_tpu_torch.geometry import camera as cam_mod, se3
+    from multi_orb_slam_tpu_torch.mapping import map_state
+
+    rng = np.random.RandomState(seed)
+    cfg = SlamConfig(n_cams=C, max_feat=F, max_kf=K + 2, max_mp=M + 1, width=320, height=240)
+    Kc = np.tile(np.array([260.0, 260.0, 160.0, 120.0], np.float32), (C, 1))
+    T_rc = np.stack([np.eye(4, dtype=np.float32)] * C)
+    T_rc[1][:3, :3] = se3.so3_exp(torch.tensor([0.0, 0.5, 0.0])).numpy()
+    T_rc[1][:3, 3] = [0.1, 0.0, 0.0]
+    exp = lambda xi: se3.exp(torch.from_numpy(np.asarray(xi, np.float32))).numpy()  # noqa: E731
+    pts = rng.uniform([-3, -1.5, 2.0], [4, 1.5, 6.0], (M, 3)).astype(np.float32)
+    st = map_state.make_empty(K + 2, C, F, M + 1, device="cpu")
+    kf_Tcw = st.kf_Tcw.numpy().copy()
+    kf_mp = np.full((K + 2, C, F), -1, np.int32)
+    xy = np.zeros((K + 2, C, F, 2), np.float32)
+    ur = np.full((K + 2, C, F), -1.0, np.float32)
+    for k in range(K):
+        kf_Tcw[k] = exp([-0.3 * k, 0.0, 0.0, 0.0, 0.04 * k, 0.0])
+        for c in range(C):
+            Tc = T_rc[c] @ kf_Tcw[k]
+            Xc = pts @ Tc[:3, :3].T + Tc[:3, 3]
+            u = Kc[c, 0] * Xc[:, 0] / Xc[:, 2] + Kc[c, 2]
+            v = Kc[c, 1] * Xc[:, 1] / Xc[:, 2] + Kc[c, 3]
+            ok = np.nonzero((Xc[:, 2] > 0.5) & (u > 0) & (u < 320) & (v > 0) & (v < 240))[0]
+            sel = rng.permutation(ok)[:F]
+            kf_mp[k, c, :len(sel)] = sel
+            xy[k, c, :len(sel)] = np.stack([u[sel], v[sel]], -1) + 0.3 * rng.randn(len(sel), 2)
+            ur[k, c, :len(sel)] = np.where(Xc[sel, 2] < 4.0, xy[k, c, :len(sel), 0]
+                                           - 20.0 / Xc[sel, 2], -1.0)
+    kf_pert = kf_Tcw.copy()
+    for k in range(1, K):
+        kf_pert[k] = exp(0.02 * rng.randn(6)) @ kf_Tcw[k]
+    pos = np.zeros((M + 1, 3), np.float32)
+    pos[:M] = pts + 0.03 * rng.randn(M, 3)
+    valid = np.zeros(K + 2, bool)
+    valid[:K] = True
+    mp_valid = np.zeros(M + 1, bool)
+    mp_valid[:M] = True
+    st = st._replace(
+        kf_Tcw=torch.from_numpy(kf_pert), kf_valid=torch.from_numpy(valid),
+        kf_frame_id=torch.from_numpy(np.where(valid, np.arange(K + 2), -1).astype(np.int32)),
+        kf_xy_und=torch.from_numpy(xy), kf_uright=torch.from_numpy(ur),
+        kf_feat_valid=torch.from_numpy(kf_mp >= 0), kf_mp=torch.from_numpy(kf_mp),
+        mp_pos=torch.from_numpy(pos), mp_valid=torch.from_numpy(mp_valid))
+    calib = cam_mod.CameraParams(K=torch.from_numpy(Kc), dist=torch.zeros((C, 5)),
+                                 T_rc=torch.from_numpy(T_rc), bf=torch.tensor(20.0),
+                                 width=320, height=240)
+    on = lambda nt: type(nt)(*[v.to(dev) if isinstance(v, torch.Tensor) else v for v in nt])  # noqa: E731
+    return on(st), on(calib), cfg
+
+
+def test_gba_map_fixture_is_solved_on_the_cpu():
+    """The problem of the card tests below: global BA moves the perturbed
+    keyframes, leaves slot 0 as it was and gives finite points."""
+    from multi_orb_slam_tpu_torch.optim import global_ba
+
+    st, calib, cfg = _gba_map("cpu")
+    Tcw, pos = global_ba.dispatch_global_ba(st, calib, cfg, n_outer=9)
+    assert torch.equal(Tcw[0], st.kf_Tcw[0]) and bool(torch.isfinite(pos).all())
+    assert float((Tcw[1:8] - st.kf_Tcw[1:8]).abs().max()) > 1e-3
+
+
+@pytest.mark.cuda
+def test_cuda_global_ba_matches_cpu():
+    """`dispatch_global_ba` on the card against the CPU on one problem (its
+    scatters add with atomics on the card, in no fixed order): keyframe poses
+    within 1e-3, points within 1e-3 m."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from multi_orb_slam_tpu_torch.optim import global_ba
+
+    out = {}
+    for dev in ("cpu", "cuda"):
+        st, calib, cfg = _gba_map(dev)
+        Tcw, pos = global_ba.dispatch_global_ba(st, calib, cfg, n_outer=9)
+        out[dev] = (Tcw.cpu(), pos.cpu(), st.mp_valid.cpu())
+    (Tc, pc, mv), (Tg, pg, _) = out["cpu"], out["cuda"]
+    d_kf, d_mp = float((Tc - Tg).abs().max()), float((pc - pg)[mv].abs().max())
+    print(f"global BA card vs CPU: poses max |diff| {d_kf:.3e}, points max |diff| {d_mp:.3e} m")
+    assert d_kf < 1e-3 and d_mp < 1e-3
+
+
+@pytest.mark.cuda
+def test_cuda_dispatch_global_ba_reads_nothing_back():
+    """The global BA is only enqueued: under
+    `torch.cuda.set_sync_debug_mode("error")` no operation of the dispatch
+    synchronises the host with the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from multi_orb_slam_tpu_torch.optim import global_ba
+
+    st, calib, cfg = _gba_map("cuda")
+    global_ba.dispatch_global_ba(st, calib, cfg, n_outer=3)     # first-use set-up
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        Tcw, pos = global_ba.dispatch_global_ba(st, calib, cfg, n_outer=9)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(Tcw).all() and torch.isfinite(pos).all())

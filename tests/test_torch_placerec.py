@@ -10,9 +10,12 @@ sparse BoW's ids are equal and its values agree to 1e-6 (a float32 cumsum
 differenced, then normalized: the two backends add in another order); scores
 to 1e-6 for the same reason.  The database rows written by `add_keyframe`
 on a converted `MapState` agree likewise, and both candidate detectors return
-the same lists.  `load_dbow2_text` reads a small file written here.
+the same lists, and both packages' whole `LoopCloser.process_keyframe` makes
+the same detections and decisions on every keyframe.  `load_dbow2_text`
+reads a small file written here.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -236,42 +239,81 @@ def test_loop_candidates(filled, min_score, max_fid):
         assert ct and set(ct[:2]) <= {0, 1, 2}
 
 
+def _dual_rig():
+    """A real two-camera calibration, the reference rig (camera 1 turned 90
+    degrees about y), in both packages."""
+    from multi_orb_slam_tpu.geometry import camera as j_cam
+    from multi_orb_slam_tpu.geometry import se3 as j_se3
+    from multi_orb_slam_tpu_torch.geometry import camera as t_cam
+
+    T_rc1 = (jnp.eye(4).at[:3, :3].set(j_se3.so3_exp(jnp.asarray([0.0, np.pi / 2, 0.0])))
+             .at[:3, 3].set(jnp.asarray([0.161, 0.004, -0.071])))
+    jcal = j_cam.CameraParams(
+        K=jnp.tile(jnp.asarray([[260.0, 260.0, 160.0, 120.0]]), (C, 1)), dist=jnp.zeros((C, 5)),
+        T_rc=jnp.stack([jnp.eye(4), T_rc1]).astype(jnp.float32), bf=jnp.asarray(20.0),
+        width=320, height=240)
+    return jcal, convert.to_torch(jcal, t_cam.CameraParams, "cpu")
+
+
 def test_loop_closer_detects_and_does_not_close(vocs, filled):
-    """The keyframes go through both loop stages in order.  The reference's
-    `_detect` and the port's give the same candidates on every keyframe (the
-    third keyframe of the revisit passes the temporal consistency check); the
-    port's `process_keyframe` counts them and leaves the map as it was."""
+    """The keyframes go through both packages' whole `process_keyframe` in
+    order, with the reference rig's calibration.  On every keyframe: the same
+    loop candidates (the third keyframe of the revisit passes the temporal
+    consistency check), the same consistency groups, and the same decision
+    on each candidate that reaches Sim3 verification (the port takes the
+    reference's RANSAC triplets).  This map has descriptors and no geometry
+    (every point and pose at the origin), so both packages reject the
+    revisit's candidates: neither closes a loop, the map comes back as it
+    went in and no global BA is pending."""
     from multi_orb_slam_tpu.config import SlamConfig as JCfg
     from multi_orb_slam_tpu.loop import loop_closing as j_lc
     from multi_orb_slam_tpu_torch.config import SlamConfig as TCfg
     from multi_orb_slam_tpu_torch.loop import loop_closing as t_lc
+    from test_torch_sim3 import _reference_triplets
 
-    kw = dict(n_cams=C, max_feat=F, max_kf=16, max_mp=M)
-    lj = j_lc.LoopCloser(None, JCfg(**kw))
+    kw = dict(n_cams=C, max_feat=F, max_kf=16, max_mp=M, width=320, height=240)
+    jcal, tcal = _dual_rig()
+    lj = j_lc.LoopCloser(jcal, JCfg(**kw))
     lj.voc, lj.db = vocs["j"], j_db.make_empty_db(16, vocs["j"].n_words, 128, 256)
-    calib = type("Rig", (), {"K": torch.zeros((C, 4))})()
-    lt = t_lc.LoopCloser(calib, TCfg(**kw))
+    lt = t_lc.LoopCloser(tcal, TCfg(**kw))
     lt.voc = vocs["t"]
     lt.db = t_db.make_empty_db(16, vocs["t"].n_words, 128, 256, device="cpu")
+    lt.triplet_source = lambda valid, a, b: torch.from_numpy(_reference_triplets(
+        jax.random.PRNGKey(a * 1000 + b), jnp.asarray(valid.numpy()))).long()
+    logs = {"j": [], "t": []}
+    for name, lc in (("j", lj), ("t", lt)):
+        def wrap(fn, tag, log=logs[name]):
+            def inner(state, k, *rest):
+                out = fn(state, k, *rest)
+                log.append((tag, k, list(out) if tag == "detect" else
+                            (rest[0], None if out is None else int(out[0]))))
+                return out
+            return inner
+        lc._detect = wrap(lc._detect, "detect")
+        lc._compute_sim3 = wrap(lc._compute_sim3, "sim3")
     st, st_t = filled["st"], filled["st_t"]
-    detected = []
     for k in range(K_KF):
-        want = lj._detect(st, k) if k + 1 > 5 else []   # its gate: more than 5 keyframes
-        lj.db = j_db.add_keyframe(lj.db, lj.voc, st, k)
-        n0 = lt.n_candidates_unverified
-        view = st_t._replace(n_kf=torch.tensor(k + 1, dtype=torch.int32))
-        out = lt.process_keyframe(view, k)
-        assert out is view
-        assert lt.n_candidates_unverified - n0 == len(want), (k, want)
+        view_j = st._replace(n_kf=jnp.asarray(k + 1, jnp.int32))
+        view_t = st_t._replace(n_kf=torch.tensor(k + 1, dtype=torch.int32))
+        assert lj.process_keyframe(view_j, k) is view_j
+        assert lt.process_keyframe(view_t, k) is view_t
+        assert logs["t"] == logs["j"], k
         assert [sorted(g) for g, _ in lt.consistent_groups] == \
             [sorted(g) for g, _ in lj.consistent_groups], k
-        detected.append(want)
+    detected = {k: c for tag, k, c in logs["j"] if tag == "detect"}
+    assert sorted(detected) == list(range(5, K_KF))     # its gate: more than 5 keyframes
     assert detected[9] and set(detected[9]) <= {0, 1, 2}, detected
-    assert lt.n_candidates_unverified == sum(len(d) for d in detected) > 0
-    assert lt.n_loops_closed == 0 and lt.merge_pending_gba(st_t) is st_t
+    tried = [(k, c) for tag, k, c in logs["t"] if tag == "sim3"]
+    assert tried and tried[-1][0] == 9 and all(res is None for _, (_, res) in tried)
+    assert len(lt.verifications) >= 1 and not any(v["accepted"] for v in lt.verifications)
+    assert lt.n_loops_closed == lj.n_loops_closed == 0
+    assert lt._gba_pending is None and lt.merge_pending_gba(st_t) is st_t
+    assert lt.n_gba_merged == lj.n_gba_merged == 0
     np.testing.assert_array_equal(lt.db.has_bow.numpy(), np.asarray(lj.db.has_bow))
+    lt.loop_pairs.append((9, 0))
     lt.reset()
     assert not bool(lt.db.has_bow.any()) and lt.voc is vocs["t"] and lt.consistent_groups == []
+    assert lt.loop_pairs == [] and lt.last_loop_kf == -t_lc.DETECT_GAP
 
 
 def test_load_dbow2_text(tmp_path):

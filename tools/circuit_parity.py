@@ -16,11 +16,26 @@ lag by up to three frames; the trajectory at the end does not).  `--noise S
 --seed N` adds Gaussian noise of S grey levels to every image: a run's
 sensitivity to a change far below one grey level.
 
+`--system` drives `System.track_rgbd` (mapping on) instead of the bare
+tracker; `--system --loop` runs the loop circuit of
+`tests/test_circuit_e2e.py` instead of the bench's scenes: 240 frames at
+320x240 (the bench's 640x480 circuit is not tracked to the end by either
+package), the same rig, K = (260, 260, 160, 120), bf = 20, a 15% depth-scale
+ramp for 0.08 <= s < 0.60, the test's `make_cfg()` (512 features,
+`max_frames_kf=12`, `th_depth=4.0`, `local_cap=1024`, default `max_kf` and
+`max_mp`), a vocabulary from camera-0 ORB of every 8th frame (k = 10, depth
+4, 3 iterations) and loop closing with global BA on.  The record then holds,
+for each loop candidate that reached Sim3 verification, its keyframes and
+frame, the matches passed to RANSAC (capped at 256), the RANSAC and LM
+inliers, the total and the decision; and at the end `n_loops_closed`,
+`n_gba_merged`, the keyframes, the frames lost and the ATE over all frames
+after rigid alignment.  About 6 minutes per package on 8 CPU cores.
+
 Each run imports ONE package: `--package torch` the PyTorch port (on
 `--device`, default cpu), `--package jax` the reference on the CPU.  Both
 render the same frames with their own copy of the same numpy renderer.
 `compare` prints the first frame at which the states differ, where the
-inlier counts drift apart, and each run's first lost frame.
+inlier counts drift apart, each run's first lost frame, and the loop records.
 """
 
 import argparse
@@ -34,7 +49,7 @@ import numpy as np
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 H, W, C = 480, 640, 2
-K4 = [520.9, 521.0, 320.0, 240.0]
+K4 = K4_BENCH = [520.9, 521.0, 320.0, 240.0]
 T_RC1_ROTVEC, T_RC1_T = [0.0, np.pi / 2, 0.0], [0.161, 0.004, -0.071]
 
 
@@ -61,6 +76,109 @@ def _render(synthetic, scene, n_frames, T_rc):
         grays.append(np.stack([v[0] for v in views]).astype(np.float32))
         depths.append(np.stack([v[1] for v in views]).astype(np.float32))
     return grays, depths, np.asarray(poses)
+
+
+LOOP_H, LOOP_W, LOOP_FRAMES, LOOP_DRIFT = 240, 320, 240, 0.15
+LOOP_K4 = [260.0, 260.0, 160.0, 120.0]
+
+
+def render_loop_circuit(synthetic, T_rc, noise=0.0, seed=0):
+    """`tests/test_circuit_e2e.py`'s frames: (grays, depths) lists of [2, H,
+    W] arrays and the poses; `noise` as in `render`."""
+    Kc = np.asarray(LOOP_K4, np.float32)
+    world = synthetic.make_box_world(seed=3, n_points=5000, box=(7.0, 4.0, 7.0))
+    poses = synthetic.circuit_trajectory(LOOP_FRAMES, radius=2.2, laps=1.25)
+    grays, depths = [], []
+    for i, T in enumerate(poses):
+        s = i / (LOOP_FRAMES - 1)
+        gs, ds = [], []
+        for c in range(C):
+            g, d = synthetic.render_rgbd(world, Kc, T_rc[c] @ T, LOOP_H, LOOP_W)
+            if 0.08 <= s < 0.60:
+                d = d * (1.0 + LOOP_DRIFT * np.sin(np.pi * (s - 0.08) / 0.52))
+            gs.append(g)
+            ds.append(d)
+        grays.append(np.stack(gs).astype(np.float32))
+        depths.append(np.stack(ds).astype(np.float32))
+    if noise > 0.0:
+        rng = np.random.RandomState(seed)
+        grays = [np.clip(g + rng.normal(0.0, noise, g.shape), 0, 255).astype(np.float32)
+                 for g in grays]
+    return grays, depths, np.asarray(poses)
+
+
+def loop_cfg_kw():
+    return dict(n_cams=C, max_feat=512, width=LOOP_W, height=LOOP_H, max_frames_kf=12,
+                th_depth=4.0, local_cap=1024, ba_local_cap=2048)
+
+
+def record_jax_verifications(lc, j_lc):
+    """Per-candidate gate counts of the reference's `LoopCloser`, which keeps
+    none: its debug messages (one per rejection or acceptance) with the
+    inputs and outputs of its RANSAC, LM and projection count, in order."""
+    recs, last = [], {}
+    ransac, refine, guided = (j_lc.sim3_solver.solve_sim3_ransac, lc._refine_sim3,
+                              lc._guided_matches)
+
+    def ransac_(key, pts_a, pts_b, cam_a, cam_b, valid, *a, **k):
+        out = ransac(key, pts_a, pts_b, cam_a, cam_b, valid, *a, **k)
+        last.update(bow=int(np.asarray(valid).sum()), ransac=int(out[2]))
+        return out
+
+    def refine_(*a, **k):
+        out = refine(*a, **k)
+        last["lm"] = int(out[1])
+        return out
+
+    def guided_(*a, **k):
+        out = guided(*a, **k)
+        last["guided"] = int(out)
+        return out
+
+    def dbg(msg):
+        head, _, tail = msg.partition(": ")
+        a, b = (int(x.split("=")[1]) for x in head.split())
+        if tail.startswith("age-skip"):
+            return
+        rec = {"kf_a": a, "kf_b": b, "bow": None, "ransac": None, "lm": None, "total": None,
+               "accepted": tail.startswith("ACCEPT")}
+        if tail.startswith("bow-matches"):
+            rec["bow"] = int(tail.split()[1])
+        else:
+            rec.update(bow=last.get("bow"), ransac=last.get("ransac"))
+            if not tail.startswith("ransac"):
+                rec["lm"] = last.get("lm")
+            if rec["lm"] is not None and rec["lm"] >= 20:
+                rec["total"] = rec["lm"] + last.get("guided", 0)
+        recs.append(rec)
+        last.clear()
+
+    j_lc.sim3_solver.solve_sim3_ransac = ransac_
+    lc._refine_sim3, lc._guided_matches = refine_, guided_
+    j_lc._dbg = dbg
+    return recs
+
+
+def run_system(args, pkg):
+    """Drive the package's `System` (its modules given in `pkg`) over the
+    frames; with `--loop`, the loop circuit with loop closing."""
+    system_mod, synthetic, grays, depths, poses_gt, slam, to_np = pkg(args)
+    rows, frame_of_rec, recs = [], [], None
+    lc = slam.loop_closer
+    for i, (g, d) in enumerate(zip(grays, depths)):
+        t = time.perf_counter()
+        slam.track_rgbd(g[0], d[0], g[1], d[1], timestamp=i / 30.0)
+        tr = slam.tracker
+        n_rec = len(lc.verifications) if lc is not None else 0
+        frame_of_rec.extend([i] * (n_rec - len(frame_of_rec)))
+        rows.append(frame_row(i, int(slam.get_tracking_state()), int(tr.last_n_inliers),
+                              int(tr.map.n_kf), int(tr.map.n_mp), to_np(tr.Tcw), poses_gt,
+                              time.perf_counter() - t))
+    slam.shutdown()
+    traj = slam.tracker.absolute_trajectory()
+    if lc is not None:
+        recs = [dict(r, at_frame=f) for r, f in zip(lc.verifications, frame_of_rec)]
+    return rows, traj, poses_gt, recs, lc
 
 
 def centre(T):
@@ -111,6 +229,96 @@ def run_torch(args):
                               time.perf_counter() - t))
     traj = tracker.absolute_trajectory()
     return rows, [bool(lost) for *_, lost in traj], [np.asarray(T) for _, _, T, _ in traj], poses_gt
+
+
+def system_torch(args):
+    import torch
+
+    from multi_orb_slam_tpu_torch import system as system_mod
+    from multi_orb_slam_tpu_torch.config import SlamConfig
+    from multi_orb_slam_tpu_torch.geometry import camera as cam_mod, se3
+    from multi_orb_slam_tpu_torch.io import synthetic
+    from multi_orb_slam_tpu_torch.ops import orb
+    from multi_orb_slam_tpu_torch.placerec import database, vocabulary
+
+    torch.set_num_threads(args.threads)
+    dev = torch.device(args.device)
+    T_rc1 = torch.eye(4)
+    T_rc1[:3, :3] = se3.so3_exp(torch.tensor(T_RC1_ROTVEC, dtype=torch.float32))
+    T_rc1[:3, 3] = torch.tensor(T_RC1_T)
+    T_rc = torch.stack([torch.eye(4), T_rc1])
+    if args.loop:
+        K4, bf, (Hh, Ww) = LOOP_K4, 20.0, (LOOP_H, LOOP_W)
+        cfg = SlamConfig(**loop_cfg_kw(), orb=orb.ORBConfig(n_features=512))
+        grays, depths, poses_gt = render_loop_circuit(synthetic, T_rc.numpy(), args.noise,
+                                                      args.seed)
+    else:
+        K4, bf, (Hh, Ww) = K4_BENCH, 40.0, (H, W)
+        cfg = SlamConfig(n_cams=C, width=W, height=H, orb=orb.ORBConfig(n_features=1024))
+        grays, depths, poses_gt = render(synthetic, args.scene, args.frames, T_rc.numpy(),
+                                        args.noise, args.seed)
+    calib = cam_mod.CameraParams(
+        K=torch.tensor([K4] * C, device=dev), dist=torch.zeros((C, 5), device=dev),
+        T_rc=T_rc.to(dev), bf=torch.tensor(bf, device=dev), width=Ww, height=Hh)
+    slam = system_mod.System(sensor=system_mod.Sensor.DUAL_RGBD, calib=calib, cfg=cfg,
+                             enable_loop_closing=args.loop, pipelined=args.pipelined,
+                             pipeline_depth=3, device=dev)
+    if args.loop:
+        descs = [orb.extract_orb(torch.from_numpy(grays[i][0]).to(dev), cfg.orb)
+                 for i in range(0, len(grays), 8)]
+        descs = np.concatenate([f.desc[f.valid].cpu().numpy() for f in descs])
+        voc = vocabulary.build_vocabulary(descs, k=10, depth=4, iters=3, device=dev)
+        slam.loop_closer.voc = voc
+        slam.loop_closer.db = database.make_empty_db(cfg.max_kf, voc.n_words, device=dev)
+    return (system_mod, synthetic, grays, depths, poses_gt, slam,
+            lambda T: T.cpu().numpy() if isinstance(T, torch.Tensor) else np.asarray(T))
+
+
+def system_jax(args):
+    os.environ["JAX_PLATFORMS"] = "cpu"
+    import jax
+    import jax.extend.backend
+
+    jax.config.update("jax_platforms", "cpu")
+    jax.extend.backend.clear_backends()
+    import jax.numpy as jnp
+
+    from multi_orb_slam_tpu import system as system_mod
+    from multi_orb_slam_tpu.config import SlamConfig
+    from multi_orb_slam_tpu.geometry import camera as cam_mod, se3
+    from multi_orb_slam_tpu.io import synthetic
+    from multi_orb_slam_tpu.loop import loop_closing as j_lc
+    from multi_orb_slam_tpu.ops import orb
+    from multi_orb_slam_tpu.placerec import database, vocabulary
+
+    Ry = se3.so3_exp(jnp.asarray(T_RC1_ROTVEC, jnp.float32))
+    T_rc = jnp.stack([jnp.eye(4), jnp.eye(4).at[:3, :3].set(Ry).at[:3, 3].set(
+        jnp.asarray(T_RC1_T))]).astype(jnp.float32)
+    if args.loop:
+        K4, bf, (Hh, Ww) = LOOP_K4, 20.0, (LOOP_H, LOOP_W)
+        cfg = SlamConfig(**loop_cfg_kw(), orb=orb.ORBConfig(n_features=512))
+        grays, depths, poses_gt = render_loop_circuit(synthetic, np.asarray(T_rc), args.noise,
+                                                      args.seed)
+    else:
+        K4, bf, (Hh, Ww) = K4_BENCH, 40.0, (H, W)
+        cfg = SlamConfig(n_cams=C, width=W, height=H, orb=orb.ORBConfig(n_features=1024))
+        grays, depths, poses_gt = render(synthetic, args.scene, args.frames, np.asarray(T_rc),
+                                        args.noise, args.seed)
+    calib = cam_mod.CameraParams(K=jnp.tile(jnp.asarray([K4]), (C, 1)), dist=jnp.zeros((C, 5)),
+                                 T_rc=T_rc, bf=jnp.asarray(bf), width=Ww, height=Hh)
+    slam = system_mod.System(calib=calib, cfg=cfg, sensor=system_mod.Sensor.DUAL_RGBD,
+                             enable_loop_closing=args.loop, pipelined=args.pipelined,
+                             pipeline_depth=3)
+    if args.loop:
+        descs = []
+        for i in range(0, len(grays), 8):
+            f = orb.extract_orb(jnp.asarray(grays[i][0]), cfg.orb)
+            descs.append(np.asarray(f.desc)[np.asarray(f.valid)])
+        voc = vocabulary.build_vocabulary(np.concatenate(descs), k=10, depth=4, iters=3)
+        lc = slam.loop_closer
+        lc.voc, lc.db = voc, database.make_empty_db(cfg.max_kf, voc.n_words)
+        lc.verifications = record_jax_verifications(lc, j_lc)
+    return system_mod, synthetic, grays, depths, poses_gt, slam, np.asarray
 
 
 def run_jax(args):
@@ -170,7 +378,47 @@ def frame_row(i, state, n_inl, n_kf, n_mp, Tcw, poses_gt, seconds):
     return row
 
 
+def cmd_system(args):
+    pkg = system_torch if args.package == "torch" else system_jax
+    rows, traj, poses_gt, recs, lc = run_system(args, pkg)
+    lost = [bool(x[-1]) for x in traj]
+    fids = [fid for fid, *_ in traj]
+    est = np.stack([centre(T) for _, _, T, _ in traj])
+    gt = np.stack([centre(poses_gt[min(f, len(poses_gt) - 1)]) for f in fids])
+    ate = ate_rmse(est, gt)
+    last_err = float(np.linalg.norm(centre(traj[-1][2]) - centre(
+        np.asarray(poses_gt[fids[-1]], np.float64) @ np.linalg.inv(np.asarray(poses_gt[0], np.float64)))))
+    out = {"package": args.package, "scene": "loop-circuit" if args.loop else args.scene,
+           "system": True, "loop": args.loop, "pipelined": args.pipelined,
+           "device": args.device if args.package == "torch" else "cpu", "frames": rows,
+           "lost": lost, "ate_m": ate, "last_pose_err_m": last_err,
+           "keyframes": int(rows[-1]["n_kf"]), "verifications": recs,
+           "n_loops_closed": None if lc is None else lc.n_loops_closed,
+           "n_gba_merged": None if lc is None else lc.n_gba_merged}
+    with open(args.out, "w") as f:
+        json.dump(out, f)
+    print(f"{args.package} System {out['scene']}: {len(lost) - sum(lost)}/{len(lost)} frames "
+          f"tracked, keyframes {out['keyframes']}, ATE {ate:.4f} m (last pose {last_err:.4f} m), "
+          f"loops closed {out['n_loops_closed']}, GBAs merged {out['n_gba_merged']}")
+    for r in recs or []:
+        print(f"  verification at frame {r['at_frame']}: {r}")
+
+
+def ate_rmse(est, gt):
+    """RMSE of camera centres after rigid (no-scale) alignment (numpy)."""
+    mu_e, mu_g = est.mean(0), gt.mean(0)
+    U, _, Vt = np.linalg.svd((gt - mu_g).T @ (est - mu_e))
+    S = np.diag([1.0, 1.0, np.sign(np.linalg.det(U @ Vt))])
+    R = U @ S @ Vt
+    err = (est - mu_e) @ R.T + mu_g - gt
+    return float(np.sqrt(np.mean(np.sum(err * err, -1))))
+
+
 def cmd_run(args):
+    if args.loop and not args.system:
+        raise SystemExit("--loop needs --system")
+    if args.system:
+        return cmd_system(args)
     rows, lost, traj, poses_gt = (run_torch if args.package == "torch" else run_jax)(args)
     gt0_inv = np.linalg.inv(np.asarray(poses_gt[0], np.float64))
     final_err = [float(np.linalg.norm(centre(T) - centre(np.asarray(poses_gt[i], np.float64) @ gt0_inv)))
@@ -199,6 +447,11 @@ def cmd_compare(args):
         lost = r["lost"]
         print(f"{r['package']}: {sum(1 for x in lost if not x)}/{len(lost)} tracked, first lost "
               f"{lost.index(True) if True in lost else None}, keyframes {r['frames'][-1]['n_kf']}")
+        if r.get("system"):
+            print(f"  ATE {r['ate_m']:.4f} m, last pose {r['last_pose_err_m']:.4f} m, loops closed "
+                  f"{r['n_loops_closed']}, GBAs merged {r['n_gba_merged']}")
+            for v in r["verifications"] or []:
+                print(f"  {v}")
     first_state = next((i for i in range(n) if a["lost"][i] != b["lost"][i]), None)
     first_kf = next((i for i in range(n) if a["frames"][i]["n_kf"] != b["frames"][i]["n_kf"]), None)
     first_inl = next((i for i in range(n) if abs(a["frames"][i]["inliers"] - b["frames"][i]["inliers"])
@@ -208,9 +461,11 @@ def cmd_compare(args):
     print(f"{'frame':>5} | {a['package']:>5} inl n_kf  err mm lost | {b['package']:>5} inl n_kf  err mm lost")
     for i in range(n):
         ra, rb = a["frames"][i], b["frames"][i]
-        print(f"{i:>5} | {ra['inliers']:>9} {ra['n_kf']:>4} {a['final_centre_err_m'][i] * 1e3:>7.1f} "
+        ea = a.get("final_centre_err_m", [r["centre_err_m"] for r in a["frames"]])[i]
+        eb = b.get("final_centre_err_m", [r["centre_err_m"] for r in b["frames"]])[i]
+        print(f"{i:>5} | {ra['inliers']:>9} {ra['n_kf']:>4} {ea * 1e3:>7.1f} "
               f"{int(a['lost'][i]):>4} | {rb['inliers']:>9} {rb['n_kf']:>4} "
-              f"{b['final_centre_err_m'][i] * 1e3:>7.1f} {int(b['lost'][i]):>4}")
+              f"{eb * 1e3:>7.1f} {int(b['lost'][i]):>4}")
 
 
 def main():
@@ -222,6 +477,9 @@ def main():
     r.add_argument("--frames", type=int, default=160)
     r.add_argument("--mapping", action="store_true")
     r.add_argument("--pipelined", action="store_true")
+    r.add_argument("--system", action="store_true", help="drive System.track_rgbd")
+    r.add_argument("--loop", action="store_true",
+                   help="with --system: the loop circuit, loop closing and global BA on")
     r.add_argument("--noise", type=float, default=0.0,
                    help="sigma of Gaussian noise added to the grey images (grey levels)")
     r.add_argument("--seed", type=int, default=0, help="seed of that noise")
