@@ -55,14 +55,51 @@ Phases (each raises on failure; the script then exits non-zero):
    frame's inputs, after the counts were read) the time split by stage.
    Then `save_map`, a fresh `System`, `load_map` (it comes back LOST), the
    loaded keyframes indexed again by the script, and one frame found again.
-6. A JSON line of per-kernel results, then the last line
-   `{"ok": true, "device": {...}}`.
+6. System path, `system-loop`: the loop circuit of
+   `tests/test_circuit_e2e.py` through `System` with loop closing and
+   global BA (a loop closed, the GBA merged, ATE < 0.20 m, every loop role
+   of `window_match` launched, the GBA dispatch held under
+   `torch.cuda.set_sync_debug_mode("error")`).
+7. The stereo path's kernel shapes (before the paths, with the other kernel
+   phases): `fast_score` on the [2 x 8, 376, 1241] canvas of a KITTI-size
+   stereo pair (1241 is no multiple of 4: the scalar-load path),
+   `gather_patches` of 4000 patches from it, `window_match` at C = 1,
+   Q = F = 2000, gated and dense: each bit-equal to its plain version.
+8. `system-stereo`: 30 rendered KITTI-size stereo pairs (ORB-SLAM2's
+   KITTI00-02.yaml settings, the right camera shifted by bf / fx) written
+   as a KITTI directory with `io/png.py` and tracked through
+   `drivers/stereo_kitti` (its `run`, the body of `main`, which also
+   returns the System for the checks): every frame tracked, ATE < 0.05 m, on frame
+   0 >= 40% of the valid left keypoints with a stereo depth at a median
+   relative error < 5%, the kernels launched; the split of
+   `build_frame_stereo` and how full the map's capacities are.
+9. `driver-rgbd`: 60 frames of the real rig (`configs/multi.yaml`,
+   `configs/calibration.txt`) written in `tools/make_tum_dataset.py`'s
+   layout with `io/png.py` and tracked through `drivers/rgbd_tum` (`run`)
+   with `--pipelined` (the first `System(pipelined=True)` on the card): 60
+   trajectory lines, a keyframe, ATE < 20 mm, all four kernels launched.
+   Then the native loader's build is tried once and reported on a JSON line
+   of its own (it needs libpng's and libjpeg's headers); where it builds,
+   its frames must equal `io/png.py`'s and the single-camera form with
+   `--native-loader --pipelined` must track every frame under 20 mm.
+   Then the same 60 frames without and with `--pipelined` in turns (off,
+   on, on, off), each run's median tracking and whole-frame times on a
+   `{"pipelined_ab": [...]}` line; each run must track under 20 mm.
+10. `driver-live`: the live driver's self-test, 20 frames streamed through a
+   local socket and tracked on the card.  `mono-init`: the two-view
+   initializer on the card and on the CPU on the same draws, on a general
+   and a planar scene: the same `ok` and model, `is_good` within 1%, R
+   within 1e-4.
+11. A JSON line of per-kernel results (with `launches_stereo` and
+   `launches_driver`, and the stereo path's shapes under `kitti_shapes`),
+   then the last line `{"ok": true, "device": {...}}`.
 
 Without a CUDA device the script exits 1 before printing any result.
 """
 
 import collections
 import json
+import pathlib
 import subprocess
 import sys
 import tempfile
@@ -366,6 +403,20 @@ def window_match_inputs(dev, rng):
     return args, dense
 
 
+def window_match_work(a):
+    """(bytes, operations) of one `window_match` call on `a`: every (query,
+    feature) pair passes ~12 gate operations; only the pairs that pass them
+    need the 256-bit distance (8 xor, 8 popcount, 8 adds) and the two
+    compares of the running best and second."""
+    from multi_orb_slam_tpu_torch.ops import kernels
+
+    n_cand = int(kernels.window_match_candidates(*a[:5], *a[6:10]).sum())
+    n_pairs = a[1].numel() * a[7].shape[1]
+    n_bytes = sum(t.numel() * t.element_size() for t in a) + 4 * 4 * a[1].numel()
+    print(f"  {n_cand} of {n_pairs} pairs pass the gates")
+    return n_bytes, 12 * n_pairs + 26 * n_cand
+
+
 def phase_window_match(dev, rng):
     from multi_orb_slam_tpu_torch.ops import kernels
 
@@ -385,16 +436,7 @@ def phase_window_match(dev, rng):
         if not ties_ok:
             raise AssertionError("window_match kernel misses a hand-made tie row")
 
-    def work(a):
-        # every (query, feature) pair passes ~12 gate operations; only the
-        # pairs that pass them need the 256-bit distance (8 xor, 8 popcount,
-        # 8 adds) and the two compares of the running best and second
-        n_cand = int(kernels.window_match_candidates(*a[:5], *a[6:10]).sum())
-        n_pairs = a[1].numel() * a[7].shape[1]
-        n_bytes = sum(t.numel() * t.element_size() for t in a) + 4 * 4 * a[1].numel()
-        print(f"  {n_cand} of {n_pairs} pairs pass the gates")
-        return n_bytes, 12 * n_pairs + 26 * n_cand
-
+    work = window_match_work
     print(f"window_match dense C={C} Q={Fk} F={F} (not the table's row):")
     report("window_match", err, kernel_clocks(lambda: kernels.window_match(*dense), "window_match"),
            cuda_ms(lambda: kernels.window_match_plain(*dense)), None, *work(dense))
@@ -1100,6 +1142,577 @@ def phase_system_loop(dev):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# The stereo sensor at KITTI's size, the drivers, the mono initializer
+# ---------------------------------------------------------------------------
+
+KITTI_H, KITTI_W, KITTI_FEATURES = 376, 1241, 2000
+KITTI_K = (718.856, 718.856, 607.1928, 185.2157)
+KITTI_BF = 386.1448
+KITTI_FRAMES = 30
+KITTI_BOX, KITTI_POINTS = (12.0, 4.0, 12.0), 16000
+STEREO_ATE_LIMIT_M = 0.05
+# ORB-SLAM2's Examples/Stereo/KITTI00-02.yaml
+KITTI_YAML = """%YAML:1.0
+Camera.fx: 718.856
+Camera.fy: 718.856
+Camera.cx: 607.1928
+Camera.cy: 185.2157
+Camera.k1: 0.0
+Camera.k2: 0.0
+Camera.p1: 0.0
+Camera.p2: 0.0
+Camera.width: 1241
+Camera.height: 376
+Camera.fps: 10.0
+Camera.bf: 386.1448
+Camera.RGB: 1
+ThDepth: 35
+ORBextractor.nFeatures: 2000
+ORBextractor.scaleFactor: 1.2
+ORBextractor.nLevels: 8
+ORBextractor.iniThFAST: 20
+ORBextractor.minThFAST: 7
+"""
+DRIVER_FRAMES = 60
+DRIVER_DEPTH_FACTOR = 1000.0       # configs/multi.yaml's DepthMapFactor
+LIVE_FRAMES = 20
+REPO_DIR = pathlib.Path(__file__).resolve().parent
+
+
+def phase_kitti_shapes(dev, rng):
+    """The three kernels at the stereo path's shapes: `fast_score` on the
+    [2 x 8, 376, 1241] canvas (1241 is no multiple of 4: scalar loads),
+    `gather_patches` of 4000 patches from it, `window_match` at C = 1,
+    Q = F = 2000 (two 1024-feature tiles, the second partial), gated and
+    dense.  Each bit-equal to its plain version."""
+    from multi_orb_slam_tpu_torch.ops import kernels, orb
+
+    out = {}
+    shapes = orb.pyramid_shapes(KITTI_H, KITTI_W, orb.ORBConfig(n_features=KITTI_FEATURES))
+    print(f"KITTI pyramid level shapes (H, W): {shapes}")
+    extents = shapes * 2
+    canvas = torch.from_numpy(rng.uniform(0, 255, (16, KITTI_H, KITTI_W)).astype(np.float32)).to(dev)
+    got, want = kernels.fast_score(canvas, extents), kernels.fast_score_plain(canvas, extents)
+    torch.cuda.synchronize()
+    err, equal = float((got - want).abs().max()), bool(torch.equal(got, want))
+    print(f"fast_score [16, {KITTI_H}, {KITTI_W}] (stereo path): bit-equal {equal}, max |diff| {err}")
+    if not equal:
+        raise AssertionError("fast_score kernel differs from its plain version at the KITTI canvas")
+    live = sum(h * w for h, w in extents)
+    out["fast_score"] = report(
+        "fast_score", err, kernel_clocks(lambda: kernels.fast_score(canvas, extents), "fast_score"),
+        cuda_ms(lambda: kernels.fast_score_plain(canvas, extents)), None,
+        4 * live + 4 * canvas.numel(), 136 * live)
+
+    side, N = 45, 2 * KITTI_FEATURES
+    idx = torch.from_numpy(np.stack([
+        rng.randint(0, 16, N), rng.randint(0, KITTI_H - side + 1, N),
+        rng.randint(0, KITTI_W - side + 1, N)], axis=1).astype(np.int32)).to(dev)
+    got, want = kernels.gather_patches(canvas, idx, side), kernels.gather_patches_plain(canvas, idx, side)
+    torch.cuda.synchronize()
+    err, equal = float((got - want).abs().max()), bool(torch.equal(got, want))
+    print(f"gather_patches [{N}, {side}, {side}] from [16, {KITTI_H}, {KITTI_W}] (stereo path): "
+          f"bit-equal {equal}, max |diff| {err}")
+    if not equal:
+        raise AssertionError("gather_patches kernel differs from its plain version at 4000 patches")
+    d = torch.arange(side, device=dev)
+    ib, iy = idx[:, 0].long()[:, None, None], (idx[:, 1].long()[:, None] + d)[:, :, None]
+    ix = (idx[:, 2].long()[:, None] + d)[:, None, :]
+    out_bytes = 4 * N * side * side
+    out["gather_patches"] = report(
+        "gather_patches", err,
+        kernel_clocks(lambda: kernels.gather_patches(canvas, idx, side), "gather_patches"),
+        cuda_ms(lambda: kernels.gather_patches_plain(canvas, idx, side)),
+        cuda_ms(lambda: canvas[ib, iy, ix]),
+        out_bytes + min(out_bytes, 4 * canvas.numel()) + 4 * idx.numel(), 0)
+
+    T = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    Q = F = KITTI_FEATURES
+    q_lmin = rng.randint(-1, 7, (1, Q)).astype(np.int32)
+    gated = (
+        T(rng.uniform(0, KITTI_W, (1, Q, 2)).astype(np.float32)),
+        T(np.where(rng.rand(1, Q) < 0.9, rng.uniform(5, 40, (1, Q)), -1.0).astype(np.float32)),
+        T(q_lmin), T(q_lmin + 2),
+        T(np.where(rng.rand(1, Q) < 0.5, rng.uniform(0, KITTI_W, (1, Q)), -1e9).astype(np.float32)),
+        T(rng.randint(-2**31, 2**31, (1, Q, 8), dtype=np.int64).astype(np.int32)),
+        T(rng.uniform(0, KITTI_W, (1, F, 2)).astype(np.float32)),
+        T(np.where(rng.rand(1, F) < 0.7, rng.uniform(0, KITTI_W, (1, F)), -1).astype(np.float32)),
+        T(rng.randint(0, 8, (1, F)).astype(np.int32)), T(rng.rand(1, F) < 0.9),
+        T(rng.randint(-2**31, 2**31, (1, F, 8), dtype=np.int64).astype(np.int32)))
+    dense = (
+        torch.zeros((1, Q, 2), device=dev),
+        T(np.where(rng.rand(1, Q) < 0.9, np.inf, -1.0).astype(np.float32)),
+        torch.full((1, Q), -1, dtype=torch.int32, device=dev),
+        torch.full((1, Q), 1 << 30, dtype=torch.int32, device=dev),
+        torch.full((1, Q), -1e9, device=dev), gated[5],
+        torch.zeros((1, F, 2), device=dev), torch.full((1, F), -1.0, device=dev),
+        torch.zeros((1, F), dtype=torch.int32, device=dev), gated[9], gated[10])
+    out["window_match"] = {}
+    for label, a in (("gated", gated), ("dense", dense)):
+        e = hold_window_match(f"{label} C=1 Q={Q} F={F} (stereo path)", a)
+        out["window_match"][label] = report(
+            "window_match", e, kernel_clocks(lambda: kernels.window_match(*a), "window_match"),
+            cuda_ms(lambda: kernels.window_match_plain(*a)), None, *window_match_work(a))
+    return out
+
+
+def run_driver(main_fn, argv):
+    """`main_fn(argv)` (a driver's `main`, or its `run`, which also returns
+    the System) with its standard output captured and echoed; returns (what
+    it returned, the output, host seconds)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = main_fn(argv)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t
+    text = buf.getvalue()
+    for line in text.splitlines():
+        print(f"    | {line}")
+    return rc, text, dt
+
+
+def median_tracking_ms(text, label="median tracking time"):
+    """A driver's printed median (`label`: ... seconds), in ms."""
+    for line in text.splitlines():
+        if line.startswith(label + ":"):
+            return float(line.split(":")[1]) * 1e3
+    raise AssertionError(f"the driver printed no {label}")
+
+
+def median_frame_ms(text):
+    return median_tracking_ms(text, "median frame time (read + track)")
+
+
+def centre_ate(est_centres, poses_gt):
+    from multi_orb_slam_tpu_torch.geometry import align
+
+    gt = np.stack([np.linalg.inv(np.asarray(T, np.float64))[:3, 3] for T in poses_gt])
+    return float(align.ate_rmse(torch.from_numpy(np.asarray(est_centres, np.float64)),
+                                torch.from_numpy(gt)))
+
+
+def write_kitti_sequence(root, n):
+    """A KITTI-layout stereo sequence from the port's renderer: `image_0`,
+    `image_1` (the right camera shifted by the baseline bf / fx), `times.txt`
+    at 10 fps.  Returns (poses, frame 0's rendered depth, render seconds)."""
+    import os
+
+    from multi_orb_slam_tpu_torch.io import png, synthetic
+
+    os.makedirs(f"{root}/image_0")
+    os.makedirs(f"{root}/image_1")
+    world = synthetic.make_box_world(seed=0, n_points=KITTI_POINTS, box=KITTI_BOX)
+    poses = synthetic.orbit_trajectory(n)
+    K = np.asarray(KITTI_K, np.float32)
+    T_lr = np.eye(4, dtype=np.float32)
+    T_lr[0, 3] = -KITTI_BF / KITTI_K[0]
+    render_s, depth0 = 0.0, None
+    for i in range(n):
+        t = time.perf_counter()
+        gl, dl = synthetic.render_rgbd(world, K, poses[i], KITTI_H, KITTI_W)
+        gr, _ = synthetic.render_rgbd(world, K, T_lr @ poses[i], KITTI_H, KITTI_W)
+        render_s += time.perf_counter() - t
+        depth0 = dl if depth0 is None else depth0
+        png.write_png(f"{root}/image_0/{i:06d}.png", np.clip(gl, 0, 255).astype(np.uint8))
+        png.write_png(f"{root}/image_1/{i:06d}.png", np.clip(gr, 0, 255).astype(np.uint8))
+    with open(f"{root}/times.txt", "w") as f:
+        f.write("".join(f"{i / 10.0:.6e}\n" for i in range(n)))
+    return poses, depth0, render_s
+
+
+def stereo_frame_split(root, calib, orb_cfg, depth0):
+    """Frame 0 through `build_frame_stereo`'s three parts on the card, each
+    timed alone (CUDA synchronise around it, median of 5), and its depth
+    against the rendered one.  Returns (fraction of valid left keypoints
+    with a depth, median relative depth error)."""
+    from multi_orb_slam_tpu_torch.frontend import frame
+    from multi_orb_slam_tpu_torch.io import png
+    from multi_orb_slam_tpu_torch.ops import orb, stereo
+
+    gl, gr = (torch.from_numpy(png.read_gray(f"{root}/image_{c}/000000.png").astype(np.float32))
+              .to(calib.K.device) for c in (0, 1))
+
+    def timed(fn):
+        out, ts = None, []
+        for _ in range(6):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t) * 1e3)
+        return out, float(np.median(ts[1:]))
+
+    feats, t_ex = timed(lambda: orb.extract_orb(torch.stack([gl, gr]), orb_cfg))
+    fl, fr_ = (orb.Features(*(v[c] for v in feats)) for c in (0, 1))
+    (_, ur), t_match = timed(lambda: stereo.stereo_match_depth(fl, fr_, calib.bf, orb_cfg.scale_factor))
+    _, t_sub = timed(lambda: stereo.subpixel_refine(gl, gr, fl.xy[:, 0], fl.xy[:, 1], ur, calib.bf))
+    fr, t_all = timed(lambda: frame.build_frame_stereo(gl, gr, calib, orb_cfg))
+    depth = fr.depth[0].cpu().numpy()
+    valid = fr.valid[0].cpu().numpy()
+    xy = fr.xy[0].cpu().numpy()
+    has = valid & (depth > 0)
+    gt = depth0[np.clip(np.round(xy[:, 1]).astype(int), 0, KITTI_H - 1),
+                np.clip(np.round(xy[:, 0]).astype(int), 0, KITTI_W - 1)]
+    ok = has & (gt > 0)
+    rel = float(np.median(np.abs(depth[ok] - gt[ok]) / gt[ok])) if ok.any() else float("inf")
+    frac = float(has.sum() / max(valid.sum(), 1))
+    print(f"  build_frame_stereo on frame 0, ms (synchronised, median of 5): extraction of both "
+          f"images {t_ex:.2f}, stereo match {t_match:.2f}, subpixel {t_sub:.2f}; the whole "
+          f"frame {t_all:.2f}")
+    print(f"  frame 0: {int(valid.sum())} valid left keypoints, {int(has.sum())} with a stereo "
+          f"depth ({frac:.1%}), median relative depth error {rel:.4f} against the rendered depth "
+          f"at {int(ok.sum())} of them")
+    return frac, rel
+
+
+def capacity_fill(slam):
+    """How full the stereo map's capacities are at the end of the run."""
+    from multi_orb_slam_tpu_torch.frontend import tracking
+    from multi_orb_slam_tpu_torch.mapping import local_mapping
+
+    st, cfg, kf = slam.map, slam.cfg, slam.tracker.last_kf_slot
+    pts = tracking.build_local_points_cache(st, kf, cfg)
+    prob = local_mapping.build_local_problem(st, kf, cfg, cfg.ba_free_kfs, cfg.ba_fixed_kfs)
+    n_local, n_ba = int(pts.valid.sum()), int((prob.mp_slot >= 0).sum())
+    print(f"  capacities at the end: map points {int(st.n_mp)} of max_mp {cfg.max_mp}; keyframes "
+          f"{int(st.n_kf)} of {cfg.max_kf}; local-map points of the newest keyframe {n_local} "
+          f"(local_cap {cfg.local_cap} kept per frame, {4 * cfg.local_cap} gathered); its "
+          f"local-BA window's points {n_ba} of ba_local_cap {cfg.ba_local_cap}"
+          f"{' (FULL: truncated)' if n_ba >= cfg.ba_local_cap else ''}")
+
+
+def phase_system_stereo(dev):
+    """The stereo path at KITTI's size through the KITTI driver; returns its
+    launch counts."""
+    import os
+
+    from multi_orb_slam_tpu_torch.drivers import stereo_kitti
+    from multi_orb_slam_tpu_torch.ops import kernels
+    from multi_orb_slam_tpu_torch.optim import local_ba
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root, settings, out = f"{tmp}/kitti", f"{tmp}/KITTI00-02.yaml", f"{tmp}/traj_kitti.txt"
+        poses, depth0, render_s = write_kitti_sequence(root, KITTI_FRAMES)
+        print(f"system-stereo: {KITTI_FRAMES} stereo pairs at {KITTI_W}x{KITTI_H} (the orbit in a "
+              f"{KITTI_BOX} box of {KITTI_POINTS} squares, baseline {KITTI_BF / KITTI_K[0]:.4f} m) "
+              f"rendered in {render_s:.1f} s ({render_s / (2 * KITTI_FRAMES):.3f} s an image) and "
+              f"written with io/png.py; settings of ORB-SLAM2's KITTI00-02.yaml")
+        with open(settings, "w") as f:
+            f.write(KITTI_YAML)
+        ba0 = local_ba.STATS["solves"]
+        kernels.reset_launch_counts()
+        (rc, slam), text, secs = run_driver(stereo_kitti.run, [settings, root, "--out", out])
+        launches = dict(kernels.LAUNCHES)
+        solves = local_ba.STATS["solves"] - ba0
+        frac, rel = stereo_frame_split(root, slam.calib, slam.cfg.orb, depth0)
+        rows = [np.array([float(v) for v in line.split()]).reshape(3, 4)
+                for line in open(out).read().splitlines() if line.strip()]
+        print(f"  the driver's run took {secs:.1f} s; pngs {len(os.listdir(root + '/image_0'))} a side")
+    traj = slam.tracker.absolute_trajectory()
+    lost = [i for i, (*_, is_lost) in enumerate(traj) if is_lost]
+    centres = np.stack([r[:, 3] for r in rows]) if rows else np.zeros((0, 3))
+    finite = bool(np.isfinite(centres).all())
+    ate = centre_ate(centres, poses) if len(rows) == KITTI_FRAMES else float("inf")
+    med = median_tracking_ms(text)
+    print(f"  frames tracked {len(traj) - len(lost)}/{KITTI_FRAMES} (lost {lost}), trajectory "
+          f"lines {len(rows)}, keyframes {int(slam.map.n_kf)}, local BAs {solves}; ATE "
+          f"{ate * 1e3:.3f} mm; track_stereo median {med:.2f} ms/frame, a whole frame (reading "
+          f"and decoding both PNGs, then tracking) median {median_frame_ms(text):.2f} ms")
+    capacity_fill(slam)
+    print(f"  kernel launches: {launches}")
+    failures = []
+    if rc != 0 or lost or len(rows) != KITTI_FRAMES:
+        failures.append(f"rc {rc}, lost {lost}, {len(rows)} trajectory lines")
+    if not finite:
+        failures.append("NaN in a pose")
+    if not ate < STEREO_ATE_LIMIT_M:
+        failures.append(f"ATE {ate:.4f} m >= {STEREO_ATE_LIMIT_M} m")
+    if not (frac >= 0.40 and rel < 0.05):
+        failures.append(f"frame 0: {frac:.1%} of keypoints with depth, median error {rel:.4f}")
+    need = ["fast_score", "gather_patches", "window_match"] + (["point_sums"] if solves else [])
+    missing = [k for k in need if launches[k] <= 0]
+    if missing:
+        failures.append(f"never launched: {missing}")
+    if failures:
+        raise AssertionError("system-stereo: " + "; ".join(failures))
+    return launches
+
+
+def write_tum_rig_sequence(root, n):
+    """`tools/make_tum_dataset.py`'s layout for the real rig of
+    `configs/calibration.txt`, at `configs/multi.yaml`'s intrinsics: rgb/,
+    depth/, rgb2/, depth2/ (depth PNGs at DepthMapFactor 1000),
+    associations.txt, associations2.txt.  Returns the rig poses."""
+    import os
+
+    from multi_orb_slam_tpu_torch.io import config_io, png, synthetic
+
+    st = config_io.load_settings(str(REPO_DIR / "configs/multi.yaml"), n_cams=1)
+    T_cam12 = config_io.load_calibration(str(REPO_DIR / "configs/calibration.txt"))
+    T_rc = np.stack([np.eye(4, dtype=np.float32), np.linalg.inv(T_cam12).astype(np.float32)])
+    t = time.perf_counter()
+    seq = synthetic.make_sequence(n_frames=n, K=st.K[0], T_rc=T_rc, height=st.height,
+                                  width=st.width, n_points=4000)
+    render_s = time.perf_counter() - t
+    t = time.perf_counter()
+    assoc = ([], [])
+    for sub in ("rgb", "depth", "rgb2", "depth2"):
+        os.makedirs(f"{root}/{sub}")
+    for i, (grays, depths) in enumerate(zip(seq.grays, seq.depths)):
+        ts = seq.timestamps[i]
+        name = f"{ts:.6f}.png"
+        for c, (rgb, dep) in enumerate((("rgb", "depth"), ("rgb2", "depth2"))):
+            png.write_png(f"{root}/{rgb}/{name}", np.clip(grays[c], 0, 255).astype(np.uint8))
+            png.write_png(f"{root}/{dep}/{name}", np.clip(
+                depths[c] * DRIVER_DEPTH_FACTOR, 0, 65535).astype(np.uint16))
+            assoc[c].append(f"{ts:.6f} {rgb}/{name} {ts:.6f} {dep}/{name}")
+    for c, fname in enumerate(("associations.txt", "associations2.txt")):
+        with open(f"{root}/{fname}", "w") as f:
+            f.write("\n".join(assoc[c]) + "\n")
+    print(f"driver-rgbd: {n} frames x 2 cameras at {st.width}x{st.height} (configs/multi.yaml's "
+          f"K, configs/calibration.txt's rig) rendered in {render_s:.1f} s, written with "
+          f"io/png.py in {time.perf_counter() - t:.1f} s")
+    return seq.poses_gt
+
+
+def tum_centres(path):
+    from multi_orb_slam_tpu_torch.io import tum
+
+    traj = tum.read_trajectory_tum(path)
+    return [Twc[:3, 3] for _, Twc in sorted(traj.items())]
+
+
+def native_loader_run(root, poses, tmp):
+    """The native loader: build it once, report, and if it built, hold its
+    frames to io/png.py's and drive the single-camera form with it."""
+    from multi_orb_slam_tpu_torch.drivers import rgbd_tum
+    from multi_orb_slam_tpu_torch.io import native_loader, png
+
+    t = time.perf_counter()
+    built = native_loader.native_available()
+    print(json.dumps({"native_loader": {"built": built, "error": native_loader.build_error(),
+                                        "seconds": round(time.perf_counter() - t, 2)}}))
+    if not built:
+        return
+    pairs = rgbd_tum.load_assoc_pairs(f"{root}/associations.txt")
+    items = [(f"{root}/{r}", f"{root}/{d}") for _, r, _, d in pairs]
+    loader = native_loader.AsyncRGBDLoader(items, 480, 640, depth_factor=DRIVER_DEPTH_FACTOR)
+    worst, t_png, t_native = 0.0, 0.0, time.perf_counter()
+    try:
+        for (gray, depth), (r, d) in zip(loader, items):
+            t = time.perf_counter()
+            g_ref = png.read_gray(r).astype(np.float32)
+            d_ref = png.read_png(d).astype(np.float32) * np.float32(1.0 / DRIVER_DEPTH_FACTOR)
+            t_png += time.perf_counter() - t
+            if not np.array_equal(gray, g_ref):
+                raise AssertionError(f"native loader: grey of {r} differs from io/png.py's")
+            rel = np.abs(depth - d_ref) / np.maximum(np.abs(d_ref), 1e-30)
+            worst = max(worst, float(rel[d_ref > 0].max(initial=0.0)))
+            if (depth[d_ref == 0] != 0).any() or worst > 1e-6:
+                raise AssertionError(f"native loader: depth of {d} differs by {worst:.2e}")
+    finally:
+        loader.close()
+    t_native = time.perf_counter() - t_native - t_png
+    print(f"  native loader: {len(items)} frames equal to io/png.py's (grey exactly, depth within "
+          f"{worst:.2e} relative); host s for all frames: native {t_native:.2f} (prefetching), "
+          f"io/png.py {t_png:.2f} ({t_png / len(items) * 1e3:.1f} ms a grey + depth pair)")
+    out, kf_out = f"{tmp}/native.txt", f"{tmp}/native_kf.txt"
+    rc, text, _ = run_driver(rgbd_tum.main, [
+        str(REPO_DIR / "configs/multi.yaml"), root, f"{root}/associations.txt", "--native-loader",
+        "--pipelined", "--no-realtime", "--out", out, "--kf-out", kf_out])
+    centres = tum_centres(out)
+    ate = centre_ate(centres, poses) if len(centres) == len(poses) else float("inf")
+    print(f"  single camera, native loader, pipelined: {len(centres)}/{len(poses)} frames tracked, "
+          f"ATE {ate * 1e3:.3f} mm, median {median_tracking_ms(text):.2f} ms/frame")
+    if rc != 0 or "using native async loader" not in text or not ate < ATE_LIMIT_M:
+        raise AssertionError(f"driver-rgbd (native loader): rc {rc}, {len(centres)} frames, "
+                             f"ATE {ate:.4f} m")
+
+
+def png_decode_ms(tmp):
+    """{filter: host ms} to decode a 640x480 8-bit image of the rendered
+    scene written with that row filter for every row, and a 16-bit depth
+    image written with Paeth."""
+    from multi_orb_slam_tpu_torch.io import png, synthetic
+
+    world = synthetic.make_box_world(seed=0, n_points=4000)
+    g, d = synthetic.render_rgbd(world, np.array([522.6, 522.6, 320.0, 240.0], np.float32),
+                                 np.eye(4, dtype=np.float32), 480, 640)
+    images = {name: (np.clip(g, 0, 255).astype(np.uint8), ft) for name, ft in (
+        ("none", png.NONE), ("sub", png.SUB), ("up", png.UP), ("average", png.AVERAGE),
+        ("paeth", png.PAETH))}
+    images["paeth, 16-bit depth"] = (np.clip(d * DRIVER_DEPTH_FACTOR, 0, 65535).astype(np.uint16),
+                                     png.PAETH)
+    out = {}
+    for name, (img, ft) in images.items():
+        path = f"{tmp}/decode.png"
+        png.write_png(path, img, ft)
+        best = float("inf")
+        for _ in range(3):
+            t = time.perf_counter()
+            back = png.read_png(path)
+            best = min(best, (time.perf_counter() - t) * 1e3)
+        if not np.array_equal(back, img):
+            raise AssertionError(f"io/png.py: the {name} image did not come back")
+        out[name] = round(best, 2)
+    return out
+
+
+def phase_driver_rgbd(dev):
+    """The TUM driver on the dual rig with `System(pipelined=True)`; returns
+    its launch counts."""
+    from multi_orb_slam_tpu_torch.drivers import rgbd_tum
+    from multi_orb_slam_tpu_torch.io import png
+    from multi_orb_slam_tpu_torch.ops import kernels
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root = f"{tmp}/seq"
+        poses = write_tum_rig_sequence(root, DRIVER_FRAMES)
+        print(f"  io/png.py, host ms to decode one 640x480 image (the best of 3), every row "
+              f"written with the filter named: {png_decode_ms(tmp)}")
+        out, kf_out = f"{tmp}/traj.txt", f"{tmp}/kf.txt"
+        kernels.reset_launch_counts()
+        (rc, slam), text, secs = run_driver(rgbd_tum.run, [
+            str(REPO_DIR / "configs/multi.yaml"), root, f"{root}/associations.txt",
+            "--assoc2", f"{root}/associations2.txt",
+            "--calibration", str(REPO_DIR / "configs/calibration.txt"),
+            "--pipelined", "--no-realtime", "--out", out, "--kf-out", kf_out])
+        launches = dict(kernels.LAUNCHES)
+        centres, kfs = tum_centres(out), tum_centres(kf_out)
+        ate = centre_ate(centres, poses) if len(centres) == DRIVER_FRAMES else float("inf")
+        med = median_tracking_ms(text)
+        print(f"  System(pipelined={slam.tracker.pipelined}): trajectory lines {len(centres)}, "
+              f"keyframe lines {len(kfs)}, map points {int(slam.map.n_mp)}, ATE {ate * 1e3:.3f} mm, "
+              f"track_rgbd median {med:.2f} ms/frame, a whole frame (reading and decoding four "
+              f"PNGs, then tracking) median {median_frame_ms(text):.2f} ms; the driver's run "
+              f"{secs:.1f} s")
+        print(f"  kernel launches: {launches}")
+        for line in slam.timing_report().splitlines():
+            print(f"    {line}")
+        missing = [k for k, v in launches.items() if v <= 0]
+        if (rc != 0 or len(centres) != DRIVER_FRAMES or len(kfs) < 1 or not ate < ATE_LIMIT_M
+                or missing or not slam.tracker.pipelined):
+            raise AssertionError(f"driver-rgbd: rc {rc}, {len(centres)} frames, {len(kfs)} "
+                                 f"keyframes, ATE {ate:.4f} m, never launched {missing}")
+        native_loader_run(root, poses, tmp)
+        pipelined_ab(root, poses, tmp)
+    return launches
+
+
+def pipelined_ab(root, poses, tmp):
+    """The same 60 frames through the TUM driver without and with
+    `--pipelined`, in turns (off, on, on, off), after the counted run above
+    has warmed the card: each run's median tracking and whole-frame times.
+    Every run must track every frame under the ATE limit."""
+    from multi_orb_slam_tpu_torch.drivers import rgbd_tum
+
+    runs = []
+    for pipelined in (False, True, True, False):
+        out = f"{tmp}/ab.txt"
+        rc, text, secs = run_driver(rgbd_tum.main, [
+            str(REPO_DIR / "configs/multi.yaml"), root, f"{root}/associations.txt",
+            "--assoc2", f"{root}/associations2.txt",
+            "--calibration", str(REPO_DIR / "configs/calibration.txt"), "--no-realtime",
+            "--out", out, "--kf-out", f"{tmp}/ab_kf.txt"] + (["--pipelined"] if pipelined else []))
+        centres = tum_centres(out)
+        ate = centre_ate(centres, poses) if len(centres) == len(poses) else float("inf")
+        runs.append({"pipelined": pipelined, "track_median_ms": round(median_tracking_ms(text), 2),
+                     "track_mean_ms": round(median_tracking_ms(text, "mean tracking time"), 2),
+                     "frame_median_ms": round(median_frame_ms(text), 2), "run_s": round(secs, 2),
+                     "ate_mm": round(ate * 1e3, 3)})
+        if rc != 0 or not ate < ATE_LIMIT_M:
+            raise AssertionError(f"driver-rgbd, pipelined={pipelined}: rc {rc}, "
+                                 f"{len(centres)} frames, ATE {ate:.4f} m")
+    print(json.dumps({"pipelined_ab": runs}))
+
+
+def phase_driver_live(dev):
+    from multi_orb_slam_tpu_torch.drivers import live_rgbd
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out = f"{tmp}/live.txt"
+        rc, text, secs = run_driver(live_rgbd.main, ["--selftest", "--out", out])
+        n = len(tum_centres(out))
+    print(f"driver-live: self-test through a local socket, {n}/{LIVE_FRAMES} frames tracked on "
+          f"the card in {secs:.1f} s")
+    if rc != 0 or n != LIVE_FRAMES or f"tracked {LIVE_FRAMES} streamed frames" not in text:
+        raise AssertionError(f"driver-live: rc {rc}, {n} frames tracked")
+
+
+def two_views(planar, n=300, noise=0.3, outliers=0.1, seed=0):
+    """`tests/test_mono_init.py`'s two-view problems (K 500/500/320/240, a
+    general scene or a rough tilted plane, 10% gross outliers)."""
+    from multi_orb_slam_tpu_torch.geometry import se3
+
+    K = np.array([500.0, 500.0, 320.0, 240.0], np.float32)
+    rng = np.random.RandomState(seed)
+    X = rng.uniform([-2, -1.5, 4.0], [2, 1.5, 8.0], (n, 3)).astype(np.float32)
+    if planar:
+        X[:, 2] = 6.0 + 0.3 * X[:, 0] + 0.1 * X[:, 1] + rng.randn(n).astype(np.float32) * 0.05
+    R = se3.so3_exp(torch.tensor([0.02, 0.12, -0.03])).numpy()
+    t = np.array([0.4, 0.05, 0.1], np.float32)
+    t = t / np.linalg.norm(t)
+
+    def project(R_, t_):
+        Xc = X @ R_.T + t_
+        return np.stack([K[0] * Xc[:, 0] / Xc[:, 2] + K[2], K[1] * Xc[:, 1] / Xc[:, 2] + K[3]], -1), Xc[:, 2]
+
+    uv1, z1 = project(np.eye(3, dtype=np.float32), np.zeros(3, np.float32))
+    uv2, z2 = project(R, t)
+    uv1 += rng.randn(n, 2) * noise
+    uv2 += rng.randn(n, 2) * noise
+    n_out = int(n * outliers)
+    idx = rng.choice(n, n_out, replace=False)
+    uv2[idx] += rng.uniform(20, 80, (n_out, 2)) * rng.choice([-1, 1], (n_out, 2))
+    return (uv1.astype(np.float32), uv2.astype(np.float32), (z1 > 0) & (z2 > 0), K, R)
+
+
+def phase_mono_init(dev):
+    """The two-view initializer on the card and on the CPU, on the same
+    draws, on both scenes."""
+    from multi_orb_slam_tpu_torch.frontend import initializer
+
+    for planar, seed in ((False, 0), (True, 1)):
+        uv1, uv2, mask, K, R_true = two_views(planar)
+        idx_h, idx_f = initializer.sample_hypotheses(torch.from_numpy(mask), 256,
+                                                     torch.Generator().manual_seed(seed))
+        res = {}
+        for where, d in (("cpu", torch.device("cpu")), ("card", dev)):
+            T = lambda a: torch.from_numpy(np.asarray(a)).to(d)  # noqa: E731
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            r = initializer.solve_two_view(T(uv1), T(uv2), T(mask), idx_h.to(d), idx_f.to(d), T(K))
+            r = type(r)(*[v.cpu() for v in r])
+            res[where] = (r, (time.perf_counter() - t) * 1e3)
+        (c, c_ms), (g, g_ms) = res["cpu"], res["card"]
+        diff_good = float((c.is_good != g.is_good).float().mean())
+        dR = float((c.R - g.R).abs().max())
+        ang = float(np.degrees(np.arccos(np.clip((np.trace(g.R.numpy() @ R_true.T) - 1) / 2, -1, 1))))
+        name = "planar" if planar else "general"
+        print(f"mono-init {name}: card ok {bool(g.ok)} homography {bool(g.used_homography)} "
+              f"({g_ms:.1f} ms), CPU ok {bool(c.ok)} homography {bool(c.used_homography)} "
+              f"({c_ms:.1f} ms); is_good differs on {diff_good:.2%} of {len(mask)}, R within "
+              f"{dR:.2e}, rotation error against the truth {ang:.3f} deg")
+        if not (bool(g.ok) == bool(c.ok) and bool(g.used_homography) == bool(c.used_homography)
+                and bool(g.ok) and bool(g.used_homography) == planar
+                and diff_good <= 0.01 and dR < 1e-4):
+            raise AssertionError(f"mono-init {name}: the card and the CPU disagree")
+
+
+T_START = time.perf_counter()
+
+
+def elapsed(label, t0):
+    t = time.perf_counter()
+    print(f"[{label}: {t - t0:.1f} s]")
+    return t
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1114,15 +1727,31 @@ def main():
         "window_match": phase_window_match(dev, rng),
         "point_sums": phase_point_sums(dev, rng),
     }
+    kitti = phase_kitti_shapes(dev, rng)
+    t = time.perf_counter()
     tracking, mapped, system = phase_main_paths(dev)
+    t = elapsed("orbit paths and system-reloc", t)
     loop = phase_system_loop(dev)
+    t = elapsed("system-loop", t)
+    stereo = phase_system_stereo(dev)
+    t = elapsed("system-stereo", t)
+    driver = phase_driver_rgbd(dev)
+    t = elapsed("driver-rgbd", t)
+    phase_driver_live(dev)
+    t = elapsed("driver-live", t)
+    phase_mono_init(dev)
+    elapsed("mono-init", t)
+    print(f"chip_smoke: {time.perf_counter() - T_START:.1f} s since the start")
     rows = []
     for name, res in results.items():
         source, replaces = KERNELS[name]
+        extra = {"kitti_shapes": kitti[name]} if name in kitti else {}
         rows.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces, "launches": mapped[name],
                      "launches_tracking_only": tracking[name],
-                     "launches_system": system[name], "launches_loop": loop[name], **res})
+                     "launches_system": system[name], "launches_loop": loop[name],
+                     "launches_stereo": stereo[name], "launches_driver": driver[name],
+                     **res, **extra})
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

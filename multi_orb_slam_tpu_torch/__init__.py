@@ -15,6 +15,14 @@ same names as the reference's, so each counterpart is easy to find:
   `triangulation.py`, `fusion.py`, local BA, keyframe culling)
 - `optim/local_ba.py`: windowed bundle adjustment with an explicit Schur
   complement; its observation re-layout is the `point_sums` CUDA kernel
+- `system.py`: the `System` facade (RGB-D, dual RGB-D and stereo input),
+  with place recognition, relocalization and loop closing behind it
+- `ops/stereo.py`, `frontend/frame.build_frame_stereo`: the stereo sensor
+- `drivers/`: the TUM RGB-D, KITTI stereo and live-stream command lines;
+  `io/png.py` decodes their images (no OpenCV); `io/native_loader.py` is
+  the optional C++ prefetching loader
+- `viz/drawers.py`, `frontend/initializer.py`: the headless viewer and the
+  monocular two-view initializer
 
 Public functions keep the reference's layouts: `[C, F, ...]` feature arrays,
 `[K, C, F]` keyframe arrays, 4x4 world->camera `Tcw`.  Descriptors are held

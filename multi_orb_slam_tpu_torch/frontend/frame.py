@@ -1,8 +1,9 @@
 """Frame construction: multi-camera ORB extraction + depth association.
 
-Counterpart of `multi_orb_slam_tpu/frontend/frame.py` (`build_frame`):
-ORB extraction of every rig camera in one batched call, per-camera keypoint
-undistortion, depth lookup and the RGB-D virtual right coordinate.
+Counterpart of `multi_orb_slam_tpu/frontend/frame.py`: `build_frame` (ORB
+extraction of every rig camera in one batched call, per-camera keypoint
+undistortion, depth lookup and the RGB-D virtual right coordinate) and
+`build_frame_stereo` (depth from left / right ORB matching).
 Cameras are a leading axis `[C, F, ...]`.
 """
 
@@ -13,7 +14,7 @@ from typing import NamedTuple
 import torch
 
 from ..geometry import camera as cam_mod
-from ..ops import orb
+from ..ops import orb, stereo
 
 
 class FrameData(NamedTuple):
@@ -59,4 +60,32 @@ def build_frame(grays: torch.Tensor, depths: torch.Tensor,
         xy=feats.xy, xy_und=xy_und, level=feats.level, angle=feats.angle,
         response=feats.response, desc=feats.desc, valid=feats.valid,
         depth=depth, uright=uright,
+    )
+
+
+def build_frame_stereo(gray_left: torch.Tensor, gray_right: torch.Tensor,
+                       calib: cam_mod.CameraParams,
+                       orb_cfg: orb.ORBConfig = orb.ORBConfig()) -> FrameData:
+    """Stereo frame (the KITTI path): gray_left, gray_right [H, W] float32 ->
+    a single-camera FrameData whose depth / uright come from stereo disparity
+    (reference Frame.cc:76-146, 782-956).
+
+    Both images are extracted in one `extract_orb` call on a [2, H, W] batch
+    (one `fast_score` and one `gather_patches` launch a frame); the reference
+    extracts them one after the other.  Then the stereo match, the SAD
+    subpixel refinement on the level-0 images and the undistortion of the
+    left features.
+    """
+    feats = orb.extract_orb(torch.stack([gray_left, gray_right]), orb_cfg)
+    featsL = orb.Features(*(t[0] for t in feats))
+    featsR = orb.Features(*(t[1] for t in feats))
+    depth, uright = stereo.stereo_match_depth(featsL, featsR, calib.bf, orb_cfg.scale_factor)
+    depth, uright = stereo.subpixel_refine(gray_left, gray_right, featsL.xy[:, 0],
+                                           featsL.xy[:, 1], uright, calib.bf)
+    xy_und = cam_mod.undistort_pixels(calib.K[0], calib.dist[0], featsL.xy)
+    return FrameData(
+        xy=featsL.xy[None], xy_und=xy_und[None], level=featsL.level[None],
+        angle=featsL.angle[None], response=featsL.response[None],
+        desc=featsL.desc[None], valid=featsL.valid[None],
+        depth=depth[None], uright=uright[None],
     )

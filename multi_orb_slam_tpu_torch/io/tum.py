@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from ..geometry import se3
+from . import png
 
 
 def read_file_list(path: str) -> dict:
@@ -64,11 +65,12 @@ def load_tum_sequence(seq_dir: str, assoc=None, depth_factor: float = 5000.0):
     """Yield (timestamp, gray [H,W] f32, depth [H,W] f32 meters) frames.
 
     `assoc`: list of (t_rgb, t_depth); built from rgb.txt/depth.txt if None.
-    Requires cv2 for image decoding (IO path only; imported here, not with
-    the module).
+    Images are decoded with `io/png.py` (what `cv2.imread` gives with
+    IMREAD_GRAYSCALE / IMREAD_UNCHANGED).  A frame whose image is missing or
+    damaged is skipped, as the reference skips what cv2 cannot read; an
+    image that cv2 reads and `io/png.py` does not (a JPEG, an interlaced
+    PNG) raises `png.UnsupportedImage`.
     """
-    import cv2
-
     rgb_list = read_file_list(os.path.join(seq_dir, "rgb.txt"))
     depth_list = read_file_list(os.path.join(seq_dir, "depth.txt"))
     if assoc is None:
@@ -76,9 +78,10 @@ def load_tum_sequence(seq_dir: str, assoc=None, depth_factor: float = 5000.0):
     for t_rgb, t_depth in assoc:
         rgb_path = os.path.join(seq_dir, rgb_list[t_rgb][0])
         d_path = os.path.join(seq_dir, depth_list[t_depth][0])
-        im = cv2.imread(rgb_path, cv2.IMREAD_GRAYSCALE)
-        dp = cv2.imread(d_path, cv2.IMREAD_UNCHANGED)
-        if im is None or dp is None:
+        try:
+            im = png.read_gray(rgb_path)
+            dp = png.read_png(d_path)
+        except (OSError, png.PNGError):
             continue
         depth = dp.astype(np.float32) / depth_factor
         yield t_rgb, im.astype(np.float32), depth

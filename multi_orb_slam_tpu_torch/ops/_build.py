@@ -55,8 +55,8 @@ def sources() -> list[Path]:
     return sorted(CSRC.glob("*.cu"))
 
 
-def _digest(srcs: list[Path]) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def _digest(srcs: list[Path], flags: list[str] = NVCC_FLAGS) -> str:
+    h = hashlib.sha256(" ".join(flags).encode())
     for s in srcs:
         h.update(s.name.encode())
         h.update(s.read_bytes())
@@ -67,6 +67,23 @@ def library_path(srcs: list[Path]) -> Path:
     return BUILD_DIR / f"libmost_kernels_{_digest(srcs)}.so"
 
 
+def _build_once(lib_path: Path, build) -> Path:
+    """`lib_path` if it is built already; else `build(tmp)` writes the
+    library under a temporary name in `_build/`, which is then renamed into
+    place, so processes that build at once never load a half-written file."""
+    if lib_path.exists():
+        return lib_path
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
+    try:
+        build(tmp)
+    except BaseException:
+        tmp.unlink(missing_ok=True)
+        raise
+    os.replace(tmp, lib_path)
+    return lib_path
+
+
 def build_library(srcs: list[Path]) -> Path:
     """Compile `srcs` (if not built yet) into one shared library; returns
     its path.
@@ -75,33 +92,47 @@ def build_library(srcs: list[Path]) -> Path:
     per kernel) is kept beside the library as `<name>.log`.
     """
     lib_path = library_path(srcs)
-    if lib_path.exists():
-        return lib_path
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-    nvcc = _nvcc()
-    t0 = time.perf_counter()
-    objs = [BUILD_DIR / f"{lib_path.stem}.{s.stem}.{os.getpid()}.o" for s in srcs]
-    procs = [subprocess.Popen(
-        [nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for s, o in zip(srcs, objs)]
-    report = "".join(p.communicate()[0] for p in procs)
-    failed = [s.name for s, p in zip(srcs, procs) if p.returncode != 0]
-    if failed:
-        raise RuntimeError(f"nvcc failed on {failed}:\n{report}")
-    link = subprocess.run(
-        [nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
-        capture_output=True, text=True)
-    for o in objs:
-        o.unlink(missing_ok=True)
-    if link.returncode != 0:
-        raise RuntimeError(
-            f"nvcc link failed ({link.returncode}):\n{link.stdout}\n{link.stderr}")
-    lib_path.with_suffix(".log").write_text(
-        f"build seconds: {time.perf_counter() - t0:.2f}\n{report}")
-    os.replace(tmp, lib_path)
-    return lib_path
+
+    def build(tmp: Path) -> None:
+        nvcc = _nvcc()
+        t0 = time.perf_counter()
+        objs = [BUILD_DIR / f"{lib_path.stem}.{s.stem}.{os.getpid()}.o" for s in srcs]
+        procs = [subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for s, o in zip(srcs, objs)]
+        report = "".join(p.communicate()[0] for p in procs)
+        failed = [s.name for s, p in zip(srcs, procs) if p.returncode != 0]
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n{report}")
+        link = subprocess.run(
+            [nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+            capture_output=True, text=True)
+        for o in objs:
+            o.unlink(missing_ok=True)
+        if link.returncode != 0:
+            raise RuntimeError(
+                f"nvcc link failed ({link.returncode}):\n{link.stdout}\n{link.stderr}")
+        lib_path.with_suffix(".log").write_text(
+            f"build seconds: {time.perf_counter() - t0:.2f}\n{report}")
+
+    return _build_once(lib_path, build)
+
+
+def build_host_library(src: Path, stem: str, flags: list[str], libs: list[str]) -> Path:
+    """Compile one C++ source for the host with `g++` into
+    `_build/<stem>_<digest>.so` (if not built yet); returns its path.  The
+    name hashes the source and flags, as for the kernels."""
+    def build(tmp: Path) -> None:
+        cxx = shutil.which("g++") or shutil.which("c++")
+        if cxx is None:
+            raise RuntimeError("no C++ compiler (g++) found")
+        proc = subprocess.run([cxx, *flags, str(src), "-o", str(tmp), *libs],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"g++ failed on {src.name} ({proc.returncode}):\n{proc.stderr}")
+
+    return _build_once(BUILD_DIR / f"{stem}_{_digest([src], flags + libs)}.so", build)
 
 
 def bind(lib_path: Path) -> ctypes.CDLL:

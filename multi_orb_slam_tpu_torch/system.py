@@ -2,7 +2,8 @@
 
 Counterpart of `multi_orb_slam_tpu/system.py` (which re-designs the reference
 `System` class, src/System.cc): construction from settings + calibration
-files or from `calib` + `cfg`, `track_rgbd`, localization mode switching,
+files or from `calib` + `cfg`, `track_rgbd` (one camera or the dual rig),
+`track_stereo` (depth from left / right ORB matching), localization mode switching,
 reset, shutdown, trajectory savers, map checkpoints.  The reference's three
 free-running threads are a deterministic staged pipeline: the tracking step
 runs inline; the mapping stage runs at each keyframe insertion; the loop
@@ -34,7 +35,7 @@ import torch
 
 from . import convert, resolve_device
 from .config import SlamConfig
-from .frontend import tracking
+from .frontend import frame as frame_mod, tracking
 from .geometry import camera as cam_mod, se3
 from .io import config_io, tum
 from .mapping import local_mapping, map_state as ms
@@ -45,10 +46,6 @@ class Sensor:
     RGBD = "rgbd"
     DUAL_RGBD = "dual_rgbd"
     STEREO = "stereo"
-
-
-_NO_STEREO = ("stereo input needs `frame.build_frame_stereo` (ROADMAP A11: "
-              "`ops/stereo.py`), which multi_orb_slam_tpu_torch does not have yet")
 
 
 class System:
@@ -65,8 +62,6 @@ class System:
         pipeline_depth: int = 1,
         device=None,
     ):
-        if sensor == Sensor.STEREO:
-            raise NotImplementedError(_NO_STEREO)
         self.device = resolve_device(device)
         n_cams = 2 if sensor == Sensor.DUAL_RGBD else 1
         if calib is None or cfg is None:
@@ -177,10 +172,7 @@ class System:
         pose Tcw [4, 4] as a numpy array, which waits for the device."""
         if self._reset_requested:
             self._do_reset()
-
-        def on_device(a):
-            return torch.as_tensor(a, dtype=torch.float32, device=self.device)
-
+        on_device = self._on_device
         if self.sensor == Sensor.DUAL_RGBD:
             if im2 is None or depth2 is None:
                 raise ValueError("a dual-camera system needs im2 and depth2")
@@ -193,15 +185,27 @@ class System:
             self.tracker.process(grays, depths, timestamp)
         return self.tracker.Tcw.cpu().numpy()
 
+    def _on_device(self, a) -> torch.Tensor:
+        return torch.as_tensor(a, dtype=torch.float32, device=self.device)
+
     def timing_report(self) -> str:
         """Per-stage timing summary (the reference's chrono prints,
         structured)."""
         return self.metrics.report()
 
     def track_stereo(self, im_left, im_right, timestamp: Optional[float] = None):
-        """TrackStereo: depth from left<->right ORB matching, then the RGB-D
-        pipeline.  Not available yet."""
-        raise NotImplementedError(_NO_STEREO)
+        """TrackStereo (the reference keeps this entry point though its
+        stereo build is disabled, src/System.cc:132-181): depth from
+        left<->right ORB matching, then the RGB-D pipeline.  Images are
+        grayscale float arrays (numpy or tensors); returns Tcw [4, 4] as a
+        numpy array."""
+        if self._reset_requested:
+            self._do_reset()
+        with self.metrics.span("track_frame"):
+            fr = frame_mod.build_frame_stereo(self._on_device(im_left),
+                                              self._on_device(im_right), self.calib, self.cfg.orb)
+            self.tracker.process_frame(fr, timestamp)
+        return self.tracker.Tcw.cpu().numpy()
 
     def activate_localization_mode(self):
         """Track against the frozen map; no new keyframes

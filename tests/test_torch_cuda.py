@@ -651,3 +651,84 @@ def test_cuda_dispatch_global_ba_reads_nothing_back():
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
     assert bool(torch.isfinite(Tcw).all() and torch.isfinite(pos).all())
+
+
+KITTI_H, KITTI_W = 376, 1241      # KITTI 00-02's published image size
+
+
+@pytest.mark.cuda
+def test_cuda_fast_score_at_the_kitti_canvas():
+    """The stereo frame's canvas: left and right x 8 pyramid levels of a
+    1241 x 376 image.  1241 is no multiple of 4, so the kernel takes its
+    scalar loads and stores."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.RandomState(11)
+    shapes = orb.pyramid_shapes(KITTI_H, KITTI_W, orb.ORBConfig(n_features=2000))
+    extents = shapes * 2
+    canvas = torch.from_numpy(
+        rng.uniform(0, 255, (16, KITTI_H, KITTI_W)).astype(np.float32)).cuda()
+    assert torch.equal(kernels.fast_score(canvas, extents),
+                       kernels.fast_score_plain(canvas, extents))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dense", [False, True])
+def test_cuda_window_match_one_camera_2000_features(dense):
+    """C = 1 and F = 2000: two tiles of 1024 features, the second partial
+    (976), at the search shape and with every gate open."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.RandomState(12)
+    args = (_dense_window_args(rng, 1, 2000, 2000, "cuda") if dense
+            else _window_args(rng, C=1, Q=2000, F=2000, dev="cuda"))
+    for g, p in zip(kernels.window_match(*args), kernels.window_match_plain(*args)):
+        assert torch.equal(g, p)
+
+
+@pytest.mark.cuda
+def test_cuda_build_frame_stereo_matches_cpu():
+    """One stereo pair of a 320x240 rendered scene through
+    `build_frame_stereo` on the CPU and on the card: the pyramid's float32
+    products run in another order on each, so keypoints are held as shared
+    (>= 95%), and where both sides matched the same right keypoint, depth
+    within 1e-4 relative."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from multi_orb_slam_tpu_torch.frontend import frame
+    from multi_orb_slam_tpu_torch.geometry import camera as cam_mod
+    from multi_orb_slam_tpu_torch.io import synthetic
+
+    K = np.array([260.0, 260.0, 160.0, 120.0], np.float32)
+    world = synthetic.make_box_world(seed=0, n_points=3000)
+    T = synthetic.orbit_trajectory(8)[0]
+    T_lr = np.eye(4, dtype=np.float32)
+    T_lr[0, 3] = -20.0 / 260.0
+    gl, _ = synthetic.render_rgbd(world, K, T, 240, 320)
+    gr, _ = synthetic.render_rgbd(world, K, T_lr @ T, 240, 320)
+    calib = cam_mod.CameraParams(K=torch.from_numpy(K)[None], dist=torch.zeros((1, 5)),
+                                 T_rc=torch.eye(4)[None], bf=torch.tensor(20.0),
+                                 width=320, height=240)
+    cfg = orb.ORBConfig(n_features=512)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        cal = cam_mod.CameraParams(*[v.to(dev) if isinstance(v, torch.Tensor) else v
+                                     for v in calib])
+        fr = frame.build_frame_stereo(torch.from_numpy(np.round(gl)).float().to(dev),
+                                      torch.from_numpy(np.round(gr)).float().to(dev), cal, cfg)
+        out[dev] = {f: getattr(fr, f)[0].cpu().numpy() for f in ("xy", "level", "valid",
+                                                                  "depth", "uright")}
+    keyed = {d: {(float(x), float(y), int(l)): i for i, ((x, y), l, v) in enumerate(
+        zip(o["xy"], o["level"], o["valid"])) if v} for d, o in out.items()}
+    shared = [(i, keyed["cuda"][k]) for k, i in keyed["cpu"].items() if k in keyed["cuda"]]
+    assert len(shared) >= 0.95 * len(keyed["cpu"])
+    ic, ig = (np.array(v) for v in zip(*shared))
+    uc, ug = out["cpu"]["uright"][ic], out["cuda"]["uright"][ig]
+    assert ((ug >= 0) & (uc >= 0)).sum() > 150
+    assert np.mean((uc >= 0) == (ug >= 0)) >= 0.98
+    both = (uc >= 0) & (ug >= 0) & (np.abs(uc - ug) < 1e-3)
+    np.testing.assert_allclose(out["cuda"]["depth"][ig][both], out["cpu"]["depth"][ic][both],
+                               rtol=1e-4)
+    print(f"build_frame_stereo card vs CPU: {len(shared)} of {len(keyed['cpu'])} keypoints "
+          f"shared, the same match decision on {np.mean((uc >= 0) == (ug >= 0)):.4f}, "
+          f"{int(both.sum())} same right matches")
