@@ -90,9 +90,25 @@ Phases (each raises on failure; the script then exits non-zero):
    initializer on the card and on the CPU on the same draws, on a general
    and a planar scene: the same `ok` and model, `is_good` within 1%, R
    within 1e-4.
-11. A JSON line of per-kernel results (with `launches_stereo` and
-   `launches_driver`, and the stereo path's shapes under `kitti_shapes`),
-   then the last line `{"ok": true, "device": {...}}`.
+11. `distributed` (`multi_orb_slam_tpu_torch/parallel/`): the distributed
+   global BA at the default capacity (192 keyframes x 2 cameras x 1024
+   slots, 24576 points; `drivers/bench_dist_ba`'s synthetic problem on the
+   bench rig, the poses and points started off the truth), 8 outer x 40 CG
+   iterations, on a real NCCL process group of one rank (the timed step
+   under `set_sync_debug_mode("error")`), on 2 and 4 gloo ranks sharing the
+   card (processes, not a scaling measurement) and on the CPU: the cost
+   falls, the free poses move toward the truth, the poses within 5e-4 of
+   world 1's, 99% of the points within 1 mm, every rank the same bits.
+   Then `dryrun_multichip` is the world-1 run above and a world-2 one: each
+   rank extracts its own orbit frame (features bit-equal to one process's
+   extraction, `fast_score` and `gather_patches` launched on every rank),
+   and scores 192 keyframes a rank x 4096 words of 10^6 against the whole
+   table (within 1e-6, the query its own best).  The kernels are built by
+   phase 1, so the ranks only load them.  A `{"distributed": ...}` line.
+12. A JSON line of per-kernel results (with `launches_stereo`,
+   `launches_driver` and `launches_distributed`, and the stereo path's
+   shapes under `kitti_shapes`), then the last line
+   `{"ok": true, "device": {...}}`.
 
 Without a CUDA device the script exits 1 before printing any result.
 """
@@ -685,7 +701,8 @@ def run_path(name, frames, poses_gt, calib, cfg, mapping):
 
 def phase_main_paths(dev):
     """The tracking-only path, the path with mapping, then the facade's path
-    with a relocalization; returns the launch counts of the three."""
+    with a relocalization; returns the launch counts of the three and the
+    first orbit frames (numpy, for the distributed path)."""
     from multi_orb_slam_tpu_torch.config import SlamConfig
     from multi_orb_slam_tpu_torch.ops import orb
 
@@ -706,7 +723,8 @@ def phase_main_paths(dev):
                              f"so `point_sums` never ran), {mapped['point_sums']} "
                              f"point_sums launches")
     system = phase_system_reloc(frames, poses_gt, calib, cfg)
-    return tracking, mapped, system
+    firsts = np.stack([g.cpu().numpy() for g, _ in frames[:DIST_DRYRUN_WORLD]])
+    return tracking, mapped, system, firsts
 
 
 N_BLANK = 3                  # blank frames of the system path
@@ -1704,6 +1722,209 @@ def phase_mono_init(dev):
             raise AssertionError(f"mono-init {name}: the card and the CPU disagree")
 
 
+# ---------------------------------------------------------------------------
+# The distributed path: global BA, place recognition and extraction on ranks
+# ---------------------------------------------------------------------------
+
+# the default SlamConfig's capacity: max_kf keyframes x 2 cameras x 1024
+# feature slots, max_mp points
+DIST_KF, DIST_POINTS, DIST_SLOTS = 192, 24576, 1024
+DIST_OUTER, DIST_CG = 8, 40
+DIST_POSE_NOISE, DIST_POINT_NOISE = 0.01, 0.05   # rad / m of the free poses' start, m of the points'
+DIST_WORDS = 10 ** 6                  # DBoW2's ORBvoc: k = 10, L = 6
+DIST_WORDS_PER_KF = 4096              # `placerec/database.make_empty_db`'s budget_all
+DIST_DRYRUN_WORLD = 2                 # the dry run's largest world: one orbit frame a rank
+DIST_TCW_TOL = 5e-4                   # tests/test_dist_ba.py:50-52
+# the points: 99% within 1 mm (a point seen only through mono rows, where u
+# lies left of the image and ur < 0, slides along its ray; ROADMAP C), and
+# every point within 1 cm (on an H100 the farthest came within 0.90-1.50 mm)
+DIST_POS_Q, DIST_POS_TOL, DIST_POS_MAX_TOL = 0.99, 1e-3, 1e-2
+
+
+def distributed_problem(calib):
+    """`drivers/bench_dist_ba`'s synthetic problem (its K, bf and 0.5 px
+    noise) at the default capacity on the bench rig's two cameras: points in
+    a 16 m cube about the middle of the keyframes' 9.55 m track, so about
+    half of each camera's random slots see their point; the free poses and
+    the points start off the truth."""
+    from multi_orb_slam_tpu_torch.drivers import bench_dist_ba
+
+    return bench_dist_ba.make_problem(
+        DIST_KF, DIST_POINTS, DIST_SLOTS, T_rc=calib.T_rc.cpu().numpy(), half=8.0,
+        centre=(-0.025 * (DIST_KF - 1), 0.0, 0.0), pose_noise=DIST_POSE_NOISE,
+        point_noise=DIST_POINT_NOISE)
+
+
+def distributed_store(world):
+    """A [192 world, 4096] sparse BoW store over 10^6 words (distinct ids and
+    L1-normalised values a row), queried with its last keyframe, which lies
+    on the last rank's shard."""
+    rng = np.random.default_rng(world)
+    K = DIST_KF * world
+    ids = np.stack([rng.choice(DIST_WORDS, DIST_WORDS_PER_KF, replace=False)
+                    for _ in range(K)]).astype(np.int32)
+    vals = rng.random((K, DIST_WORDS_PER_KF), dtype=np.float32)
+    vals /= vals.sum(1, keepdims=True)
+    return ids, vals, K - 1
+
+
+def pose_errors(Tcw, Tcw_gt):
+    from multi_orb_slam_tpu_torch.geometry import se3
+
+    d = se3.log(torch.from_numpy(np.asarray(Tcw)) @ se3.inverse(torch.from_numpy(Tcw_gt)))
+    return d.norm(dim=-1).numpy()
+
+
+def step_device_ms(prob, dev):
+    """Device time of one step on one process with no group, summed over its
+    kernels from `torch.profiler`, and the number of device operations."""
+    from multi_orb_slam_tpu_torch.parallel import dist_ba, dryrun, multihost
+
+    mesh = multihost.global_mesh(device=dev)
+    flat = dist_ba.shard_problem(
+        dist_ba.flatten_problem(*(prob[k] for k in dryrun.FLAT_KEYS), 1), mesh)
+    cal = [torch.from_numpy(np.asarray(prob[k], np.float32)).to(dev) for k in ("T_rc", "K_intr")]
+    bf = torch.tensor(float(prob["bf"]), device=dev)
+    step = dist_ba.make_dist_ba_step(mesh, DIST_OUTER, DIST_CG)
+    step(flat, *cal, bf)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        step(flat, *cal, bf)
+        torch.cuda.synchronize()
+    cpu = torch.autograd.DeviceType.CPU
+    kernels = [k for e in prof.events() if e.device_type == cpu for k in e.kernels]
+    return sum(k.duration for k in kernels) / 1e3, len(kernels)
+
+
+def phase_distributed(dev, frames):
+    """`parallel/`: the distributed global BA at the default capacity on a
+    real NCCL process group of one rank (no host synchronisation in the
+    step) and on 2 and 4 gloo ranks sharing the card, against each other and
+    against the same problem on the CPU; `dryrun_multichip` at world 1 (NCCL)
+    and 2 (gloo), each rank extracting its own orbit frame; returns each
+    world's per-rank kernel launches."""
+    from multi_orb_slam_tpu_torch.config import SlamConfig
+    from multi_orb_slam_tpu_torch.ops import orb
+    from multi_orb_slam_tpu_torch.parallel import dist_ba, dryrun, multihost
+
+    cfg = SlamConfig(n_cams=C, width=W, height=H, orb=orb.ORBConfig(n_features=1024))
+    t0 = time.perf_counter()
+    prob = distributed_problem(bench_rig(dev))
+    stores = {w: distributed_store(w) for w in (1, 2)}
+    print(f"distributed: problem of {DIST_KF} keyframes x {C} cameras x {DIST_SLOTS} slots, "
+          f"{DIST_POINTS} points, stores of {DIST_KF} keyframes a rank x {DIST_WORDS_PER_KF} "
+          f"words of {DIST_WORDS}, made in {time.perf_counter() - t0:.1f} s")
+
+    def inputs(world):
+        ids, vals, q = stores[world]
+        return dict(frames=frames[:world], orb_cfg=cfg.orb, problem=prob, n_outer=DIST_OUTER,
+                    cg_iters=DIST_CG, db_ids=ids, db_vals=vals, n_words=DIST_WORDS, query=q)
+
+    runs = {}
+    for name, world, backend, fn, args in (
+            ("world1_nccl", 1, "nccl", dryrun.dryrun_multichip, (inputs(1),)),
+            ("world2_gloo", 2, "gloo", dryrun.dryrun_multichip, (inputs(2),)),
+            ("world4_gloo", 4, "gloo", dryrun.run_ba, (prob, DIST_OUTER, DIST_CG))):
+        t, t_wall = time.perf_counter(), time.time()
+        runs[name] = multihost.spawn_local(fn, world, backend, "cuda", *args)
+        print(f"  {name}: {world} rank(s) started, ran and joined in "
+              f"{time.perf_counter() - t:.1f} s, the first {world} call(s) began "
+              f"{min(r['started_at'] for r in runs[name]) - t_wall:.1f} s after the start")
+    ba = {k: [r["ba"] if "ba" in r else r for r in v] for k, v in runs.items()}
+    ref = ba["world1_nccl"][0]
+
+    t = time.perf_counter()
+    mesh_cpu = multihost.global_mesh(device="cpu")
+    flat = dist_ba.shard_problem(
+        dist_ba.flatten_problem(*(prob[k] for k in dryrun.FLAT_KEYS), 1), mesh_cpu)
+    Tcw_cpu, pos_cpu, costs_cpu = dist_ba.make_dist_ba_step(mesh_cpu, DIST_OUTER, DIST_CG)(
+        flat, torch.from_numpy(prob["T_rc"]), torch.from_numpy(prob["K_intr"]),
+        torch.tensor(float(prob["bf"])))
+    cpu_s = time.perf_counter() - t
+    dev_ms, n_ops = step_device_ms(prob, dev)
+
+    free = prob["kf_free"]
+    err0 = pose_errors(prob["kf_Tcw"], prob["poses_gt"])[free]
+    failures, rows = [], []
+
+    def against(Tcw, pos):
+        dp = np.abs(np.asarray(pos) - ref["pos"]).max(-1)
+        return float(np.abs(np.asarray(Tcw) - ref["Tcw"]).max()), float(dp.max()), \
+            float(np.quantile(dp, DIST_POS_Q))
+
+    for name, ranks in list(ba.items()) + [("cpu_world1", [{
+            "Tcw": Tcw_cpu.numpy(), "pos": pos_cpu.numpy(), "costs": costs_cpu.numpy(),
+            "backend": "none", "world_size": 1, "s_per_outer_iter": cpu_s / DIST_OUTER,
+            "sync_checked": False}])]:
+        r = ranks[0]
+        err1 = pose_errors(r["Tcw"], prob["poses_gt"])[free]
+        dT, dp_max, dp_q = against(r["Tcw"], r["pos"])
+        same = all(np.array_equal(x["Tcw"], r["Tcw"]) and np.array_equal(x["pos"], r["pos"])
+                   for x in ranks)
+        row = {"run": name, "world_size": r["world_size"], "backend": r["backend"],
+               "device": "cpu" if name.startswith("cpu") else "cuda",
+               "outer": DIST_OUTER, "cg_iters": DIST_CG,
+               "s_per_outer_iter": r["s_per_outer_iter"],
+               "cost_first": float(r["costs"][0]), "cost_last": float(r["costs"][-1]),
+               "pose_err_mean_before": float(err0.mean()), "pose_err_mean_after": float(err1.mean()),
+               "dTcw_vs_world1": dT, "dpos_max_vs_world1": dp_max,
+               f"dpos_q{DIST_POS_Q}_vs_world1": dp_q, "ranks_bit_equal": same,
+               "no_host_sync_checked": r["sync_checked"]}
+        rows.append(row)
+        print(f"  {name}: {r['world_size']} rank(s) on {row['device']} ({r['backend']}): "
+              f"{r['s_per_outer_iter'] * 1e3:.2f} ms per outer iteration, cost "
+              f"{row['cost_first']:.6g} -> {row['cost_last']:.6g}, free-pose error "
+              f"{err0.mean():.5f} -> {err1.mean():.5f}; against world 1 (NCCL): poses within "
+              f"{dT:.3g}, points within {dp_max:.3g} (q{DIST_POS_Q} {dp_q:.3g}); ranks the "
+              f"same bits {same}; step checked free of host syncs {r['sync_checked']}")
+        if not (np.isfinite(r["Tcw"]).all() and np.isfinite(r["pos"]).all()):
+            failures.append(f"{name}: NaN or inf")
+        if not (r["costs"][-1] < r["costs"][0] and err1.mean() < err0.mean()):
+            failures.append(f"{name}: cost {row['cost_first']} -> {row['cost_last']}, "
+                            f"pose error {err0.mean()} -> {err1.mean()}")
+        if not (same and dT <= DIST_TCW_TOL and dp_q <= DIST_POS_TOL
+                and dp_max <= DIST_POS_MAX_TOL):
+            failures.append(f"{name}: ranks equal {same}, poses {dT}, points q{DIST_POS_Q} "
+                            f"{dp_q}, max {dp_max}")
+    if not ref["sync_checked"]:
+        failures.append("world 1 on NCCL was not run under set_sync_debug_mode('error')")
+    print(f"  the step at world 1 on one process under torch.profiler: {n_ops} device "
+          f"operations, {dev_ms:.3f} ms of device time; {ref['n_obs']} observations in "
+          f"{ref['n_slots']} slots; all_reduce calls a step: {DIST_OUTER * (DIST_CG + 2)} "
+          f"(on gloo each stages its tensor through the host)")
+
+    launches, extraction, scorer = {}, [], []
+    for name in ("world1_nccl", "world2_gloo"):
+        launches[name] = [r["launches"] for r in runs[name]]
+        for r in runs[name]:
+            want = orb.extract_orb(torch.from_numpy(frames[r["rank"]]).to(dev), cfg.orb)
+            equal = all(np.array_equal(r["features"][f], v.cpu().numpy())
+                        for f, v in want._asdict().items())
+            n_kp = int(r["features"]["valid"].sum())
+            extraction.append({"run": name, "rank": r["rank"], "ms": r["extract_s"] * 1e3,
+                               "keypoints": n_kp, "bit_equal_to_one_process": equal,
+                               "launches": r["launches"]})
+            scorer.append({"run": name, "rank": r["rank"], "keyframes": len(r["scores"]),
+                           "max_abs_err": r["score_err"], "bit_equal": r["scores_bit_equal"],
+                           "best": r["best"]})
+            print(f"  {name} rank {r['rank']}: frame {r['rank']} extracted in "
+                  f"{r['extract_s'] * 1e3:.2f} ms ({n_kp} keypoints, bit-equal to one process's "
+                  f"extraction {equal}), launches {r['launches']}; scores of "
+                  f"{len(r['scores'])} keyframes within {r['score_err']:.3g} of the whole "
+                  f"table's (bit-equal {r['scores_bit_equal']}), best {r['best']}")
+            if not (equal and r["launches"]["fast_score"] > 0
+                    and r["launches"]["gather_patches"] > 0):
+                failures.append(f"{name} rank {r['rank']}: features equal {equal}, "
+                                f"launches {r['launches']}")
+    print(json.dumps({"distributed": {"runs": rows, "extraction": extraction, "scorer": scorer,
+                                      "step_device_ms": dev_ms, "step_device_ops": n_ops}}))
+    if failures:
+        raise AssertionError("distributed: " + "; ".join(failures))
+    return {k: {name: [c[k] for c in v] for name, v in launches.items()}
+            for k in ("fast_score", "gather_patches", "window_match", "point_sums")}
+
+
 T_START = time.perf_counter()
 
 
@@ -1729,7 +1950,7 @@ def main():
     }
     kitti = phase_kitti_shapes(dev, rng)
     t = time.perf_counter()
-    tracking, mapped, system = phase_main_paths(dev)
+    tracking, mapped, system, firsts = phase_main_paths(dev)
     t = elapsed("orbit paths and system-reloc", t)
     loop = phase_system_loop(dev)
     t = elapsed("system-loop", t)
@@ -1740,7 +1961,9 @@ def main():
     phase_driver_live(dev)
     t = elapsed("driver-live", t)
     phase_mono_init(dev)
-    elapsed("mono-init", t)
+    t = elapsed("mono-init", t)
+    distributed = phase_distributed(dev, firsts)
+    elapsed("distributed", t)
     print(f"chip_smoke: {time.perf_counter() - T_START:.1f} s since the start")
     rows = []
     for name, res in results.items():
@@ -1751,6 +1974,7 @@ def main():
                      "launches_tracking_only": tracking[name],
                      "launches_system": system[name], "launches_loop": loop[name],
                      "launches_stereo": stereo[name], "launches_driver": driver[name],
+                     "launches_distributed": distributed[name],
                      **res, **extra})
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,9 @@
 """State carried between the JAX reference package and this port.
 
 `CameraParams`, `FrameData`, `MapState`, `LocalPoints`, `PoseObs`,
-`Features`, `BAProblem`, `Vocabulary`, `KeyFrameDB` and `Sim3Obs` have the
-same fields, in the same order, in both packages.
+`Features`, `BAProblem`, `Vocabulary`, `KeyFrameDB`, `Sim3Obs` and `FlatBA`
+(`parallel/dist_ba.py`) have the same fields, in the same order, in both
+packages.
 `to_torch` turns a reference tuple (of jax or numpy arrays) into the port's
 tuple of tensors on a device; `to_numpy` turns a port tuple into a dict of
 numpy arrays that the reference's constructors take

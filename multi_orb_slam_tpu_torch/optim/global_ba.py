@@ -48,6 +48,120 @@ def inv3(A: torch.Tensor) -> torch.Tensor:
     return torch.stack([c0, c1, c2], dim=-1) / det[..., None, None]
 
 
+def schur_lm(kf_Tcw, mp_pos, kf_free, mp_valid, obs_kf, mp_idx, obs_ok, obs_is2,
+             residual_state, n_outer, cg_iters, reduce=lambda t: t):
+    """The LM outer loop over the matrix-free Schur complement, on N flat
+    observation rows: Huber weights, the point system (local: a point's
+    observations are all in this call), the camera system and right-hand
+    side, block-Jacobi PCG for the pose update, back-substitution of the
+    points, accept / reject on the robust cost.
+
+    `obs_kf` [N] indexes the K poses, `mp_idx` [N] the points `mp_pos`
+    holds; `residual_state(Tcw, pos, want_jac)` returns the rows' (e [N, 3],
+    Jc, Jp, is_st [N], posd [N]).  `reduce` sums a tensor over the processes
+    that hold the other points (the distributed BA's `all_reduce`; the
+    identity for one process): the camera system with its gradient and
+    coupling term in one call, one call per matvec, the two costs in one.
+    Returns (Tcw, pos, costs [n_outer], the cost before each iteration)."""
+    K, M = kf_Tcw.shape[0], mp_pos.shape[0]
+    dev, dtype = mp_pos.device, mp_pos.dtype
+    free_f = kf_free.to(dtype)
+    free_o = free_f[obs_kf][:, None, None]
+    # float32 square roots of the float32 gates, as the reference takes them
+    delta_m = float(np.sqrt(np.float32(CHI2_MONO)))
+    delta_s = float(np.sqrt(np.float32(CHI2_STEREO)))
+    pad_pts = torch.where(mp_valid, 0.0, 1.0)[:, None, None] * torch.eye(3, dtype=dtype, device=dev)
+    pad_kfs = torch.where(kf_free, 0.0, 1.0)[:, None, None] * torch.eye(6, dtype=dtype, device=dev)
+
+    def scatter(n_rows, idx, v):
+        out = torch.zeros((n_rows,) + v.shape[1:], dtype=dtype, device=dev)
+        return out.index_add_(0, idx, v)
+
+    def rho(c2, delta):
+        r = torch.sqrt(torch.clamp(c2, min=1e-12))
+        return torch.where(r > delta, delta * (2 * r - delta), c2)
+
+    Tcw_all, pos_all = kf_Tcw, mp_pos
+    lam = torch.full((), 1e-4, dtype=dtype, device=dev)
+    costs = []
+    for _ in range(n_outer):
+        e, Jc, Jp, is_st, posd = residual_state(Tcw_all, pos_all, True)
+        act = obs_ok & posd
+        row = residuals.row_weights(is_st, dtype)
+        chi2 = torch.sum(e * e * row, -1) * obs_is2
+        delta = torch.where(is_st, delta_s, delta_m)
+        r = torch.sqrt(torch.clamp(chi2, min=1e-12))
+        hw = torch.where(r > delta, delta / r, 1.0)
+        Wr = row * (obs_is2 * hw * act.to(dtype))[:, None]
+
+        Jc_eff = Jc * free_o
+        JTcW = Jc_eff * Wr[:, :, None]
+        JTpW = Jp * Wr[:, :, None]
+        Hpp = scatter(M, mp_idx, residuals.outer_rows(JTpW, Jp))
+        bp = scatter(M, mp_idx, residuals.jte_rows(JTpW, e))
+        # per-observation camera-point coupling block U_n [6, 3]
+        U = residuals.outer_rows(JTcW, Jp)
+        Hpp_inv = inv3(_damp_blocks(Hpp, lam) + pad_pts)
+        zb = residuals.bmv(Hpp_inv, bp)
+
+        # Hcc, bc and W Hpp^-1 bp, summed over the processes in one call
+        sysc = reduce(torch.cat([
+            scatter(K, obs_kf, residuals.outer_rows(JTcW, Jc_eff)).reshape(K, 36),
+            scatter(K, obs_kf, residuals.jte_rows(JTcW, e)),
+            scatter(K, obs_kf, residuals.bmv(U, zb[mp_idx]))], dim=1))
+        Hcc_d = _damp_blocks(sysc[:, :36].reshape(K, 6, 6), lam)
+        rhs = (sysc[:, 36:42] - sysc[:, 42:]) * free_f[:, None]
+
+        def S_matvec(x):  # x [K, 6]
+            y = scatter(M, mp_idx, residuals.bmtv(U, x[obs_kf]))     # sum U^T x -> [M, 3]
+            z = residuals.bmv(Hpp_inv, y)
+            WHWx = reduce(scatter(K, obs_kf, residuals.bmv(U, z[mp_idx])))   # sum U z -> [K, 6]
+            return (residuals.bmv(Hcc_d, x) - WHWx) * free_f[:, None]
+
+        # block-Jacobi preconditioner from the damped Hcc
+        Pinv = torch.linalg.inv_ex(Hcc_d + pad_kfs)[0]
+
+        def precond(v):
+            return residuals.bmv(Pinv, v) * free_f[:, None]
+
+        # PCG for S dx = -rhs
+        x = torch.zeros((K, 6), dtype=dtype, device=dev)
+        rr = -rhs
+        p = precond(rr)
+        rz = torch.sum(rr * p)
+        for _ in range(cg_iters):
+            Sp = S_matvec(p)
+            pSp = torch.sum(p * Sp)
+            alpha = rz / torch.where(torch.abs(pSp) < 1e-20, 1e-20, pSp)
+            x = x + alpha * p
+            rr = rr - alpha * Sp
+            z = precond(rr)
+            rz_new = torch.sum(rr * z)
+            beta = rz_new / torch.where(torch.abs(rz) < 1e-20, 1e-20, rz)
+            p = z + beta * p
+            rz = rz_new
+        dxc = x * free_f[:, None]
+
+        # back-substitute points: dp = -Hpp_inv (bp + W^T dxc)
+        WTdx = scatter(M, mp_idx, residuals.bmtv(U, dxc[obs_kf]))
+        dp = -residuals.bmv(Hpp_inv, bp + WTdx) * mp_valid[:, None]
+
+        Tcw_new = se3.exp(dxc) @ Tcw_all
+        pos_new = pos_all + dp
+        e2, _, _, _, posd2 = residual_state(Tcw_new, pos_new, False)
+        chi2n = torch.sum(e2 * e2 * row, -1) * obs_is2
+        tot = reduce(torch.stack([
+            torch.sum(torch.where(obs_ok & posd2, rho(chi2n, delta), 0.0)),
+            torch.sum(torch.where(act, rho(chi2, delta), 0.0))]))
+        tot_new, tot_old = tot[0], tot[1]
+        accept = tot_new < tot_old
+        Tcw_all = torch.where(accept, Tcw_new, Tcw_all)
+        pos_all = torch.where(accept, pos_new, pos_all)
+        lam = torch.clamp(torch.where(accept, lam * 0.5, lam * 5.0), 1e-9, 1e8)
+        costs.append(tot_old)
+    return Tcw_all, pos_all, torch.stack(costs)
+
+
 def make_global_ba(cfg: SlamConfig):
     """The global BA function for a configuration: `step(kf_Tcw, kf_valid,
     kf_free, kf_mp, obs_uvr, obs_is2, mp_pos, mp_valid, T_rc, K_intr, bf,
@@ -58,22 +172,15 @@ def make_global_ba(cfg: SlamConfig):
         K, C, F = kf_mp.shape
         M = mp_pos.shape[0]
         N = K * C * F
-        dev, dtype = mp_pos.device, mp_pos.dtype
+        dev = mp_pos.device
 
         obs_kf = torch.arange(K, device=dev)[:, None, None].expand(K, C, F).reshape(N)
         obs_mp = kf_mp.reshape(N)
         uvr = obs_uvr.reshape(K, C, F, 3)
-        is2 = obs_is2.reshape(N)
         mp_idx = obs_mp.clamp(0, M - 1).long()
         obs_ok = (obs_mp >= 0) & kf_valid[obs_kf] & mp_valid[mp_idx]
-        free_f = kf_free.to(dtype)
-        # float32 square roots of the float32 gates, as the reference takes them
-        delta_m = float(np.sqrt(np.float32(CHI2_MONO)))
-        delta_s = float(np.sqrt(np.float32(CHI2_STEREO)))
-        eye3 = torch.eye(3, dtype=dtype, device=dev)
-        eye6 = torch.eye(6, dtype=dtype, device=dev)
 
-        def residual_state(Tcw_all, pos_all, want_jac=True):
+        def residual_state(Tcw_all, pos_all, want_jac):
             # pose and extrinsic enter as [K,1,1] / [1,C,1] broadcasts over
             # the [K, C, F] layout
             e, Jc, Jp, is_st, posd = residuals.reproj_residual(
@@ -83,91 +190,9 @@ def make_global_ba(cfg: SlamConfig):
                 Jc, Jp = Jc.reshape(N, 3, 6), Jp.reshape(N, 3, 3)
             return e.reshape(N, 3), Jc, Jp, is_st.reshape(N), posd.reshape(N)
 
-        def scatter(n_rows, idx, v):
-            out = torch.zeros((n_rows,) + v.shape[1:], dtype=dtype, device=dev)
-            return out.index_add_(0, idx, v)
-
-        def rho(c2, delta):
-            r = torch.sqrt(torch.clamp(c2, min=1e-12))
-            return torch.where(r > delta, delta * (2 * r - delta), c2)
-
-        Tcw_all, pos_all = kf_Tcw, mp_pos
-        lam = torch.full((), 1e-4, dtype=dtype, device=dev)
-        for _ in range(n_outer):
-            e, Jc, Jp, is_st, posd = residual_state(Tcw_all, pos_all)
-            act = obs_ok & posd
-            row = residuals.row_weights(is_st, dtype)
-            chi2 = torch.sum(e * e * row, -1) * is2
-            delta = torch.where(is_st, delta_s, delta_m)
-            r = torch.sqrt(torch.clamp(chi2, min=1e-12))
-            hw = torch.where(r > delta, delta / r, 1.0)
-            Wr = row * (is2 * hw * act.to(dtype))[:, None]
-
-            Jc_eff = Jc * free_f[obs_kf][:, None, None]
-            JTcW = Jc_eff * Wr[:, :, None]
-            JTpW = Jp * Wr[:, :, None]
-            Hcc = scatter(K, obs_kf, residuals.outer_rows(JTcW, Jc_eff))
-            bc = scatter(K, obs_kf, residuals.jte_rows(JTcW, e))
-            Hpp = scatter(M, mp_idx, residuals.outer_rows(JTpW, Jp))
-            bp = scatter(M, mp_idx, residuals.jte_rows(JTpW, e))
-            # per-observation camera-point coupling block U_n [6, 3]
-            U = residuals.outer_rows(JTcW, Jp)
-
-            Hcc_d = _damp_blocks(Hcc, lam)
-            Hpp_d = _damp_blocks(Hpp, lam) + torch.where(
-                mp_valid, 0.0, 1.0)[:, None, None] * eye3
-            Hpp_inv = inv3(Hpp_d)
-
-            def S_matvec(x):  # x [K, 6]
-                y = scatter(M, mp_idx, residuals.bmtv(U, x[obs_kf]))     # sum U^T x -> [M, 3]
-                z = residuals.bmv(Hpp_inv, y)
-                WHWx = scatter(K, obs_kf, residuals.bmv(U, z[mp_idx]))   # sum U z -> [K, 6]
-                return (residuals.bmv(Hcc_d, x) - WHWx) * free_f[:, None]
-
-            # rhs = bc - W Hpp_inv bp
-            zb = residuals.bmv(Hpp_inv, bp)
-            rhs = (bc - scatter(K, obs_kf, residuals.bmv(U, zb[mp_idx]))) * free_f[:, None]
-
-            # block-Jacobi preconditioner from the damped Hcc
-            Pinv = torch.linalg.inv_ex(
-                Hcc_d + torch.where(kf_free, 0.0, 1.0)[:, None, None] * eye6)[0]
-
-            def precond(v):
-                return residuals.bmv(Pinv, v) * free_f[:, None]
-
-            # PCG for S dx = -rhs
-            x = torch.zeros((K, 6), dtype=dtype, device=dev)
-            rr = -rhs
-            p = precond(rr)
-            rz = torch.sum(rr * p)
-            for _ in range(cg_iters):
-                Sp = S_matvec(p)
-                pSp = torch.sum(p * Sp)
-                alpha = rz / torch.where(torch.abs(pSp) < 1e-20, 1e-20, pSp)
-                x = x + alpha * p
-                rr = rr - alpha * Sp
-                z = precond(rr)
-                rz_new = torch.sum(rr * z)
-                beta = rz_new / torch.where(torch.abs(rz) < 1e-20, 1e-20, rz)
-                p = z + beta * p
-                rz = rz_new
-            dxc = x * free_f[:, None]
-
-            # back-substitute points: dp = -Hpp_inv (bp + W^T dxc)
-            WTdx = scatter(M, mp_idx, residuals.bmtv(U, dxc[obs_kf]))
-            dp = -residuals.bmv(Hpp_inv, bp + WTdx) * mp_valid[:, None]
-
-            Tcw_new = se3.exp(dxc) @ Tcw_all
-            pos_new = pos_all + dp
-            e2, _, _, _, posd2 = residual_state(Tcw_new, pos_new, want_jac=False)
-            chi2n = torch.sum(e2 * e2 * row, -1) * is2
-            tot_new = torch.sum(torch.where(obs_ok & posd2, rho(chi2n, delta), 0.0))
-            tot_old = torch.sum(torch.where(act, rho(chi2, delta), 0.0))
-            accept = tot_new < tot_old
-            Tcw_all = torch.where(accept, Tcw_new, Tcw_all)
-            pos_all = torch.where(accept, pos_new, pos_all)
-            lam = torch.clamp(torch.where(accept, lam * 0.5, lam * 5.0), 1e-9, 1e8)
-        return Tcw_all, pos_all
+        Tcw, pos, _ = schur_lm(kf_Tcw, mp_pos, kf_free, mp_valid, obs_kf, mp_idx, obs_ok,
+                               obs_is2.reshape(N), residual_state, n_outer, cg_iters)
+        return Tcw, pos
 
     return step
 

@@ -732,3 +732,29 @@ def test_cuda_build_frame_stereo_matches_cpu():
     print(f"build_frame_stereo card vs CPU: {len(shared)} of {len(keyed['cpu'])} keypoints "
           f"shared, the same match decision on {np.mean((uc >= 0) == (ug >= 0)):.4f}, "
           f"{int(both.sum())} same right matches")
+
+
+@pytest.mark.cuda
+def test_cuda_dist_ba_nccl_world_one_matches_gloo_world_two():
+    """The distributed BA on the card: world 1 on a real NCCL process group
+    (its timed step under `set_sync_debug_mode("error")`) against world 2 on
+    gloo, two ranks sharing the card, on a small two-camera problem: poses
+    within 5e-4, the points within 1e-3 m, every rank the same poses."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from multi_orb_slam_tpu_torch.drivers import bench_dist_ba
+    from multi_orb_slam_tpu_torch.parallel import dryrun, multihost
+
+    T_rc = np.stack([np.eye(4, dtype=np.float32)] * 2)
+    T_rc[1, 0, 3] = 0.1
+    prob = bench_dist_ba.make_problem(8, 256, 64, T_rc=T_rc, pose_noise=0.01, point_noise=0.05)
+    one = multihost.spawn_local(dryrun.run_ba, 1, "nccl", "cuda", prob, 8, 30)[0]
+    two = multihost.spawn_local(dryrun.run_ba, 2, "gloo", "cuda", prob, 8, 30)
+    assert one["backend"] == "nccl" and one["sync_checked"]
+    assert two[0]["backend"] == "gloo" and np.array_equal(two[0]["Tcw"], two[1]["Tcw"])
+    np.testing.assert_allclose(two[0]["Tcw"], one["Tcw"], atol=5e-4)
+    np.testing.assert_allclose(two[0]["pos"], one["pos"], atol=1e-3)
+    assert one["costs"][-1] < one["costs"][0]
+    print(f"dist BA card, world 1 nccl vs 2 gloo: Tcw within "
+          f"{np.abs(two[0]['Tcw'] - one['Tcw']).max():.3g}, points within "
+          f"{np.abs(two[0]['pos'] - one['pos']).max():.3g}, costs {one['costs'][[0, -1]]}")
