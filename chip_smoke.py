@@ -40,6 +40,20 @@ Phases (each raises on failure; the script then exits non-zero):
    read just after; a path fails unless every frame tracks, ATE < 0.02 m,
    no pose or map point is NaN and every kernel of the path launched (the
    mapping path: all four, and every keyframe mapped).
+   Then `fused-orbit`: the same 60 frames and mapping callback through
+   `Tracker(pipelined=True, pipeline_depth=3, fuse_extraction=True)`, as
+   `bench.py` runs the JAX package: every OK frame one replay of the CUDA
+   graph of `track_frame_fused_images`, each replay and its copies out under
+   `set_sync_debug_mode("error")`.  It fails unless every frame tracks, ATE
+   < 0.02 m, the keyframes of the eager mapping path are inserted and mapped
+   on the same frames, every camera centre lies within 1 mm of that run's,
+   one capture was made and all four kernels launched (counted through the
+   replays).  It prints the capture's ms, the kernels in the graph, eager and
+   graph ms a frame, one replay's device ms (`torch.profiler`) and the
+   device ms of the two branches computed on every frame.  Then
+   `track_frames_scan` over the same frames in chunks of 4 after the first
+   (one [4, 8] read back a chunk, the mapping stage between chunks): every
+   frame tracked, ATE < 0.02 m; ms a chunk and the keyframes.
 5. System path, `system-reloc`: the 60 orbit frames through
    `System(sensor=DUAL_RGBD, calib=..., cfg=...)` on the card (its defaults:
    unpipelined, mapping and the loop stage on), with 3 frames blanked out
@@ -106,7 +120,8 @@ Phases (each raises on failure; the script then exits non-zero):
    table (within 1e-6, the query its own best).  The kernels are built by
    phase 1, so the ranks only load them.  A `{"distributed": ...}` line.
 12. A JSON line of per-kernel results (with `launches_stereo`,
-   `launches_driver` and `launches_distributed`, and the stereo path's
+   `launches_driver`, `launches_distributed`, `launches_fused` and
+   `launches_scan`, and the stereo path's
    shapes under `kitti_shapes`), then the last line
    `{"ok": true, "device": {...}}`.
 
@@ -615,17 +630,22 @@ def render_scene(name, calib, dev):
     return frames, np.asarray(poses, np.float64)
 
 
-def run_path(name, frames, poses_gt, calib, cfg, mapping):
+def run_path(name, frames, poses_gt, calib, cfg, mapping, fused=False, info=None):
     """Drive the Tracker over `frames`, with or without the mapping
-    callback; returns (launch counts, keyframes mapped, local-BA solves)."""
+    callback (with `fused`, `fuse_extraction=True`: every OK frame one
+    replay of the fused step's CUDA graph); returns (launch counts,
+    keyframes mapped, local-BA solves).  `info`, a dict, receives the
+    tracker, the frame times (ms), the camera centres and the frames whose
+    keyframe was mapped."""
     from multi_orb_slam_tpu_torch.frontend import tracking
     from multi_orb_slam_tpu_torch.geometry import align
     from multi_orb_slam_tpu_torch.mapping import local_mapping
     from multi_orb_slam_tpu_torch.ops import kernels
     from multi_orb_slam_tpu_torch.optim import local_ba
 
-    tracker = tracking.Tracker(calib, cfg, pipelined=True, pipeline_depth=3)
-    map_ms, covis_pending = [], [None]
+    tracker = tracking.Tracker(calib, cfg, pipelined=True, pipeline_depth=3,
+                               fuse_extraction=fused)
+    map_ms, covis_pending, kf_frames = [], [None], []
 
     def kf_cb(kf_slot):
         # as bench.py sets it: the mapping stage, then the covisible count
@@ -639,6 +659,7 @@ def run_path(name, frames, poses_gt, calib, cfg, mapping):
             covis_pending[0] = local_mapping.covis_kf_count(m, kf_slot)
         torch.cuda.synchronize()
         map_ms.append((time.perf_counter() - t) * 1e3)
+        kf_frames.append(tracker.last_kf_frame)
         return m
 
     if mapping:
@@ -673,7 +694,11 @@ def run_path(name, frames, poses_gt, calib, cfg, mapping):
                for k, v in local_mapping.STATS["ba_windows"].items() if v - windows0.get(k, 0)}
     solves = local_ba.STATS["solves"] - ba0["solves"]
     iters = local_ba.STATS["iterations"] - ba0["iterations"]
-    label = f"{name}-{n}" + (" with mapping" if mapping else " tracking only")
+    label = (f"{name}-{n}" + (" with mapping" if mapping else " tracking only")
+             + (", fused step as a CUDA graph" if fused else ""))
+    if info is not None:
+        info.update(tracker=tracker, ms=ms, centres=est.numpy(), kf_frames=kf_frames,
+                    ate=ate)
     print(f"{label}: Tracker.process median {np.median(ms):.2f} ms/frame "
           f"(first frame {ms[0]:.2f} ms, max {ms.max():.2f} ms, "
           f"median from frame 8 on {np.median(ms[8:]):.2f} ms, total {ms.sum() / 1e3:.2f} s)")
@@ -715,16 +740,179 @@ def phase_main_paths(dev):
                if tracking[k] <= 0]
     if missing:
         raise AssertionError(f"tracking path never launched: {missing}")
-    mapped, _, solves = run_path("orbit", frames, poses_gt, calib, cfg, mapping=True)
+    eager = {}
+    mapped, _, solves = run_path("orbit", frames, poses_gt, calib, cfg, mapping=True,
+                                 info=eager)
     missing = [k for k, v in mapped.items() if v <= 0]
     if missing or solves == 0 or mapped["point_sums"] != solves:
         raise AssertionError(f"mapping path on the orbit: never launched {missing}; "
                              f"{solves} local-BA solves (none: no local BA was reached, "
                              f"so `point_sums` never ran), {mapped['point_sums']} "
                              f"point_sums launches")
+    fused = phase_fused_orbit(frames, poses_gt, calib, cfg, eager)
+    scan = phase_scan(frames, poses_gt, calib, cfg)
     system = phase_system_reloc(frames, poses_gt, calib, cfg)
     firsts = np.stack([g.cpu().numpy() for g, _ in frames[:DIST_DRYRUN_WORLD]])
-    return tracking, mapped, system, firsts
+    return tracking, mapped, system, firsts, fused, scan
+
+
+FUSED_CENTRE_LIMIT_M = 1e-3   # the graph's camera centres against the eager run's
+SCAN_G = 4
+
+
+def profiled_device(fn, pause=0.1):
+    """Device time of one call of `fn` under `torch.profiler`: the summed
+    durations of the kernels and copies it traced on the card, and their
+    count (a warm-up step first; pauses keep the read call away from the
+    window's ends, where the tracer drops records)."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    steps = torch.profiler.schedule(wait=0, warmup=1, active=1, repeat=1)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts, schedule=steps) as prof:
+        for active in (False, True):
+            time.sleep(pause if active else 0.0)
+            fn()
+            torch.cuda.synchronize()
+            time.sleep(pause if active else 0.0)
+            prof.step()
+    # the kernels, copies and fills; not the ranges (the profiler's step,
+    # `record_function`) that the tracer also draws on the device's timeline
+    cuda = torch.autograd.DeviceType.CUDA
+    dev = [e for e in prof.events() if e.device_type == cuda
+           and not getattr(e, "is_user_annotation", False)
+           and not e.name.startswith("ProfilerStep")]
+    return sum(e.time_range.elapsed_us() for e in dev) / 1e3, len(dev)
+
+
+def phase_fused_orbit(frames, poses_gt, calib, cfg, eager):
+    """`fused-orbit`: the 60 orbit frames through the tracker with
+    `fuse_extraction=True` and the mapping stage at every keyframe, as
+    `bench.py` runs the JAX package: every OK frame one replay of the
+    fused step's CUDA graph (each replay and its copies out under
+    `set_sync_debug_mode("error")`, inside the step).  Fails unless every
+    frame tracks, ATE < 20 mm, the keyframes of the eager mapping path just
+    before were inserted and mapped on the same frames, every camera centre
+    lies within 1 mm of that run's, one capture was made and all four
+    kernels launched, counted through the replays.  Returns the counts."""
+    from multi_orb_slam_tpu_torch.frontend import tracking
+
+    info = {}
+    launches, n_mapped, _ = run_path("orbit", frames, poses_gt, calib, cfg, mapping=True,
+                                     fused=True, info=info)
+    tr = info["tracker"]
+    fs = tr.fused
+    n_replays = fs.n_replays
+    d_centre = float(np.abs(info["centres"] - eager["centres"]).max())
+    e_ms, g_ms = eager["ms"], info["ms"]
+    print(f"  fused step: {fs.n_captures} capture (warm-up {fs.warmup_ms:.1f} ms, capture "
+          f"{fs.capture_ms:.1f} ms), {n_replays} replays, each under "
+          f"set_sync_debug_mode('error'); kernels in the graph {fs.graph_launches}")
+    print(f"  ms a frame, eager / graph: median {np.median(e_ms):.2f} / {np.median(g_ms):.2f}, "
+          f"max {e_ms.max():.2f} / {g_ms.max():.2f}, median from frame 8 on "
+          f"{np.median(e_ms[8:]):.2f} / {np.median(g_ms[8:]):.2f}")
+    print(f"  keyframes mapped: eager {eager['kf_frames']}, graph {info['kf_frames']}; "
+          f"camera centres within {d_centre * 1e3:.4f} mm of the eager run's")
+    # one replay's span on the device, unprofiled (the tracer slows a graph)
+    span_ms = cuda_ms(fs.run, reps=3, warmup=0)
+    dev_ms, dev_ops = profiled_device(fs.run)
+    newest = tracking._newest_kf(tr.map)
+    fb_ms, fb_ops = profiled_device(lambda: tracking.track_reference_kf(
+        tr.map, newest, tr.prev_Tcw, tr.prev_frame, tr.calib, cfg))
+    ins_ms, ins_ops = profiled_device(lambda: tracking.insert_keyframe_impl(
+        tr.map, tr.prev_frame, tr.prev_Tcw, tr.prev_mp, tr.calib, cfg, fs.frame_id))
+    print(f"  one replay: {dev_ops} device operations, {dev_ms:.3f} ms of device time "
+          f"(torch.profiler); {span_ms:.3f} ms a replay by CUDA events, unprofiled; the branches "
+          f"computed on every frame: reference-KF fallback {fb_ms:.3f} ms ({fb_ops} ops), "
+          f"keyframe insertion {ins_ms:.3f} ms ({ins_ops} ops)")
+    print(json.dumps({"fused_orbit": {
+        "frames": len(frames), "ate_m": info["ate"], "centre_vs_eager_m": d_centre,
+        "eager_ms_median": float(np.median(e_ms)), "eager_ms_max": float(e_ms.max()),
+        "graph_ms_median": float(np.median(g_ms)), "graph_ms_max": float(g_ms.max()),
+        "warmup_ms": fs.warmup_ms, "capture_ms": fs.capture_ms, "replays": n_replays,
+        "graph_kernels": fs.graph_launches, "replay_device_ms": dev_ms,
+        "replay_device_ops": dev_ops, "replay_span_ms": span_ms,
+        "fallback_device_ms": fb_ms, "insertion_device_ms": ins_ms}}))
+    missing = [k for k, v in launches.items() if v <= 0]
+    if fs.n_captures != 1 or n_replays != len(frames) - 1:
+        raise AssertionError(f"fused-orbit: {fs.n_captures} captures, {n_replays} replays "
+                             f"for {len(frames) - 1} frames after the first")
+    if info["kf_frames"] != eager["kf_frames"] or n_mapped != len(eager["kf_frames"]):
+        raise AssertionError(f"fused-orbit: keyframes {info['kf_frames']} against the eager "
+                             f"run's {eager['kf_frames']}")
+    if not d_centre < FUSED_CENTRE_LIMIT_M:
+        raise AssertionError(f"fused-orbit: camera centres {d_centre:.6f} m from the eager run's")
+    if missing:
+        raise AssertionError(f"fused-orbit: never launched {missing}")
+    return launches
+
+
+def phase_scan(frames, poses_gt, calib, cfg):
+    """`track_frames_scan` over the orbit frames in chunks of 4 after the
+    first frame (the map initialized by the tracker): each chunk is 4
+    replays of one CUDA graph, then one read of its [4, 8] scalars; the
+    host runs the mapping stage for each keyframe of the chunk between
+    chunks, as `run_path`'s callback does, and rebuilds the local points
+    from the mapped map.  Fails unless every frame tracks and ATE < 20 mm.
+    Returns the launch counts."""
+    from multi_orb_slam_tpu_torch.frontend import fused_graph, tracking
+    from multi_orb_slam_tpu_torch.geometry import align
+    from multi_orb_slam_tpu_torch.mapping import local_mapping
+    from multi_orb_slam_tpu_torch.ops import kernels
+
+    kernels.reset_launch_counts()
+    tr = tracking.Tracker(calib, cfg, device=calib.K.device)
+    tr.process(*frames[0])
+    carry = [tr.map, tr.prev_frame, tr.prev_Tcw, tr.prev_mp, tr.velocity,
+             torch.tensor([tr.last_kf_frame, tr.ref_kf_tracked, 0], dtype=torch.int32,
+                          device=calib.K.device), tr._ensure_local_pts()]
+    poses = [tr.prev_Tcw]
+    fid, chunk_ms, map_ms, kf_frames, reads = 1, [], [], [], 0
+    covis = None
+    ok_all = True
+    for c0 in range(1, len(frames), SCAN_G):
+        chunk = frames[c0:c0 + SCAN_G]
+        grays = torch.stack([g for g, _ in chunk])
+        depths = torch.stack([d for _, d in chunk])
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        *carry, outs = tracking.track_frames_scan(*carry, grays, depths, calib, cfg, fid)
+        scal = outs[0].cpu().numpy()      # the chunk's one read back
+        chunk_ms.append((time.perf_counter() - t) * 1e3)
+        reads += 1
+        poses.extend(outs[4])
+        ok_all &= bool(scal[:, 0].all())
+        for g in range(len(chunk)):
+            if scal[g, 2]:
+                kf_frames.append(fid + g)
+                t = time.perf_counter()
+                hint = int(covis) if covis is not None else None
+                carry[0] = local_mapping.run_mapping_stage(
+                    carry[0], int(scal[g, 3]), fid + len(chunk), calib, cfg, covis_hint=hint)
+                if cfg.ba_adaptive:
+                    covis = local_mapping.covis_kf_count(carry[0], int(scal[g, 3]))
+                carry[6] = tracking.build_local_points_cache(carry[0], int(scal[g, 3]), cfg)
+                torch.cuda.synchronize()
+                map_ms.append((time.perf_counter() - t) * 1e3)
+        fid += len(chunk)
+    launches = dict(kernels.LAUNCHES)
+    Tcw = torch.stack(poses).cpu().numpy().astype(np.float64)
+    est = torch.from_numpy(np.stack([np.linalg.inv(T)[:3, 3] for T in Tcw]))
+    gt = torch.from_numpy(np.stack([np.linalg.inv(T)[:3, 3] for T in poses_gt[:len(frames)]]))
+    ate = float(align.ate_rmse(est, gt))
+    fs = fused_graph._SCAN_STEPS[(calib.K.device, cfg, calib.width, calib.height)]
+    ms = np.asarray(chunk_ms)
+    print(f"scan-{len(frames)}: track_frames_scan in {len(ms)} chunks of <= {SCAN_G} frames "
+          f"(G replays of one graph: {fs.n_captures} capture, warm-up {fs.warmup_ms:.1f} ms, "
+          f"capture {fs.capture_ms:.1f} ms): ms a chunk median {np.median(ms):.2f}, max "
+          f"{ms.max():.2f} (the first with the capture), {np.median(ms) / SCAN_G:.2f} a frame; "
+          f"{reads / len(ms):.0f} read back a chunk; keyframes {kf_frames}, mapping stages "
+          f"median {np.median(map_ms) if map_ms else 0.0:.2f} ms; ATE {ate * 1e3:.3f} mm; "
+          f"launches {launches}")
+    if not ok_all:
+        raise AssertionError("scan: a frame was not tracked")
+    if not ate < ATE_LIMIT_M:
+        raise AssertionError(f"scan: ATE {ate:.4f} m >= {ATE_LIMIT_M} m")
+    return launches
 
 
 N_BLANK = 3                  # blank frames of the system path
@@ -1950,7 +2138,7 @@ def main():
     }
     kitti = phase_kitti_shapes(dev, rng)
     t = time.perf_counter()
-    tracking, mapped, system, firsts = phase_main_paths(dev)
+    tracking, mapped, system, firsts, fused, scan = phase_main_paths(dev)
     t = elapsed("orbit paths and system-reloc", t)
     loop = phase_system_loop(dev)
     t = elapsed("system-loop", t)
@@ -1975,6 +2163,7 @@ def main():
                      "launches_system": system[name], "launches_loop": loop[name],
                      "launches_stereo": stereo[name], "launches_driver": driver[name],
                      "launches_distributed": distributed[name],
+                     "launches_fused": fused[name], "launches_scan": scan[name],
                      **res, **extra})
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -53,7 +53,7 @@ def build_frame(grays: torch.Tensor, depths: torch.Tensor,
     feats = orb.extract_orb(grays, orb_cfg)
     xy_und = cam_mod.undistort_pixels(calib.K[:, None, :], calib.dist[:, None, :], feats.xy)
     depth = sample_depth(depths, feats.xy, feats.valid)
-    bf = torch.as_tensor(calib.bf, dtype=torch.float32, device=grays.device)
+    bf = calib.bf.to(grays.device, torch.float32)
     uright = cam_mod.virtual_right_u(bf.reshape(-1, 1) if bf.dim() else bf,
                                      xy_und[..., 0], depth)
     return FrameData(

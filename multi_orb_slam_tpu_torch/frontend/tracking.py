@@ -11,11 +11,15 @@ Counterpart of `multi_orb_slam_tpu/frontend/tracking.py`:
 
 The reference runs one frame as one fused device dispatch whose two
 `lax.cond`s (reference-KF fallback, keyframe insertion) stay on the device.
-Here both are host `if`s in `track_frame_fused`, each after one scalar
-read from the device; everything else stays on the device.  The `Tracker`
-keeps the reference's pipelined bookkeeping (status scalars resolved
-`pipeline_depth` frames later), so keyframe callbacks and the local-point
-cache refresh happen on the same frames as in the reference.
+Here `track_frame_fused` runs both branches on every frame and takes their
+outputs with `torch.where` on the device predicate (`select`), so the host
+reads nothing back while it enqueues a frame; `track_frame_fused_images`
+adds the frame's extraction, and `track_frames_scan` runs G frames.  On the
+card the `Tracker` replays `track_frame_fused_images` as one CUDA graph a
+frame (`fused_graph.FusedStep`).  The `Tracker` keeps the reference's
+pipelined bookkeeping (status scalars resolved `pipeline_depth` frames
+later), so keyframe callbacks and the local-point cache refresh happen on
+the same frames as in the reference.
 
 State updates are functional, as in the reference: a stage clones the map
 arrays it writes and returns a new `MapState`.
@@ -38,6 +42,41 @@ from . import frame as frame_mod
 
 def _neg1(t: torch.Tensor) -> torch.Tensor:
     return torch.full_like(t, -1)
+
+
+def _device_scalar(v, dtype: torch.dtype, device) -> torch.Tensor:
+    """`v` as a 0-dim tensor on `device`: a tensor is moved, a Python number
+    is filled in on the device (no copy from the host)."""
+    if isinstance(v, torch.Tensor):
+        return v.to(device, dtype)
+    return torch.full((), v, dtype=dtype, device=device)
+
+
+def _filled(values, dtype: torch.dtype, device) -> torch.Tensor:
+    """A 1-D tensor of host values, each filled in on the device."""
+    out = torch.empty(len(values), dtype=dtype, device=device)
+    for i, v in enumerate(values):
+        out[i].fill_(v)
+    return out
+
+
+def _row(a: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """a[idx] for a slot that lives on the device (0-dim or 1-element):
+    indexing with a 0-dim tensor would read it back to the host."""
+    return a.index_select(0, idx.reshape(1).long())[0]
+
+
+def select(pred: torch.Tensor, a, b):
+    """`torch.where(pred, a, b)` field by field over tensors, tuples and
+    NamedTuples of one structure: the port's form of `lax.cond`, with both
+    branches computed.  A field that is the same object in both is passed on
+    as it is."""
+    if a is b:
+        return a
+    if isinstance(a, torch.Tensor):
+        return torch.where(pred, a, b)
+    out = [select(pred, x, y) for x, y in zip(a, b)]
+    return type(a)(*out) if hasattr(a, "_fields") else type(a)(out)
 
 
 def unproject_features(fr: frame_mod.FrameData, Tcw: torch.Tensor,
@@ -74,7 +113,7 @@ def _pose_obs_from_matches(fr: frame_mod.FrameData, pw: torch.Tensor,
 
 
 def initialize_map(state: ms.MapState, fr: frame_mod.FrameData,
-                   calib: cam_mod.CameraParams, cfg: SlamConfig, frame_id: int):
+                   calib: cam_mod.CameraParams, cfg: SlamConfig, frame_id):
     """First KF at identity + map points from depth in all cameras."""
     Tcw = torch.eye(4, dtype=torch.float32, device=fr.xy.device)
     state, frame_mp = insert_keyframe_impl(
@@ -85,15 +124,17 @@ def initialize_map(state: ms.MapState, fr: frame_mod.FrameData,
 def insert_keyframe_impl(state: ms.MapState, fr: frame_mod.FrameData,
                          Tcw: torch.Tensor, frame_mp: torch.Tensor,
                          calib: cam_mod.CameraParams, cfg: SlamConfig,
-                         frame_id: int, unlimited_new: bool = False):
+                         frame_id, unlimited_new: bool = False):
     """Write the frame as a keyframe; create new close-depth map points
     (nearest first, `new_mp_per_cam` per camera unless `unlimited_new`).
+    `frame_id`: an int or a 0-dim int32 tensor on the device.
 
     Returns (new_state, kf_mp [C, F]).
     """
     C, F = fr.valid.shape
     M = cfg.max_mp
     dev = fr.valid.device
+    fid = _device_scalar(frame_id, torch.int32, dev)
     k = torch.argmin(state.kf_valid.to(torch.int32)).reshape(1)  # first free slot
     frame_mp = ms.resolve_mp_ids(state, frame_mp)
 
@@ -139,8 +180,7 @@ def insert_keyframe_impl(state: ms.MapState, fr: frame_mod.FrameData,
     mp_min = set_rows(state.mp_min_dist, min_d)
     mp_max = set_rows(state.mp_max_dist, max_d)
     mp_first_kf = set_rows(state.mp_first_kf, k.to(torch.int32).expand(tgt.shape))
-    mp_first_frame = set_rows(state.mp_first_frame,
-                              torch.full(tgt.shape, frame_id, dtype=torch.int32, device=dev))
+    mp_first_frame = set_rows(state.mp_first_frame, fid.expand(tgt.shape))
     ones = torch.ones(tgt.shape, dtype=torch.int32, device=dev)
     mp_descbuf_n = set_rows(state.mp_descbuf_n, ones)
     mp_visible = set_rows(state.mp_visible, ones)
@@ -176,8 +216,8 @@ def insert_keyframe_impl(state: ms.MapState, fr: frame_mod.FrameData,
 
     new_state = state._replace(
         kf_Tcw=set_kf(state.kf_Tcw, Tcw),
-        kf_valid=set_kf(state.kf_valid, torch.tensor(True, device=dev)),
-        kf_frame_id=set_kf(state.kf_frame_id, torch.tensor(frame_id, device=dev)),
+        kf_valid=set_kf(state.kf_valid, torch.ones((), dtype=torch.bool, device=dev)),
+        kf_frame_id=set_kf(state.kf_frame_id, fid),
         kf_xy_und=set_kf(state.kf_xy_und, fr.xy_und),
         kf_uright=set_kf(state.kf_uright, fr.uright),
         kf_depth=set_kf(state.kf_depth, fr.depth),
@@ -277,9 +317,10 @@ def track_reference_kf(state: ms.MapState, ref_kf: torch.Tensor,
 
     Returns (Tcw, frame_mp, n_matches, n_inliers).
     """
-    r = ref_kf.long()
+    r = _device_scalar(ref_kf, torch.int64, prev_Tcw.device)
     frame_mp = search.match_frame_kf_brute(
-        state.kf_desc[r], state.kf_feat_valid[r], state.kf_mp[r], state.kf_angle[r],
+        _row(state.kf_desc, r), _row(state.kf_feat_valid, r),
+        _row(state.kf_mp, r), _row(state.kf_angle, r),
         cur.desc, cur.valid, cur.angle, th=hamming.TH_LOW, nn_ratio=0.7)
     matched = frame_mp >= 0
     n_matches = matched.sum(dtype=torch.int32)
@@ -295,12 +336,13 @@ def build_local_points_cache(state: ms.MapState, anchor_slot, cfg: SlamConfig
     """Local-map point batch anchored on a keyframe (normally the newest):
     the points of every keyframe sharing observations with the anchor,
     ranked by that keyframe's shared-observation count, as a superset of
-    4 x local_cap that `track_local_map` re-ranks per frame."""
+    4 x local_cap that `track_local_map` re-ranks per frame.  `anchor_slot`:
+    an int, or a slot on the device (clamped into range)."""
     M = cfg.max_mp
     K = state.kf_mp.shape[0]
     dev = state.kf_mp.device
-    anchor = torch.as_tensor(anchor_slot, device=dev).long()
-    amp = state.kf_mp[anchor].reshape(-1)
+    anchor = _device_scalar(anchor_slot, torch.int64, dev).clamp(0, K - 1)
+    amp = _row(state.kf_mp, anchor).reshape(-1)
     in_anchor = ms.scatter_max_bool(M, torch.where(amp >= 0, amp, torch.full_like(amp, M - 1)),
                                   amp >= 0)
     kf_obs = state.kf_mp.reshape(K, -1)
@@ -316,8 +358,7 @@ def build_local_points_cache(state: ms.MapState, anchor_slot, cfg: SlamConfig
     w_row = kf_w[lk].to(torch.float32)
     rel = torch.zeros(M, dtype=torch.float32, device=dev)
     rel.scatter_reduce_(0, tgt.long(), torch.where(
-        obs_valid, w_row[:, None], torch.tensor(float("-inf"), device=dev)).reshape(-1),
-        "amax", include_self=True)
+        obs_valid, w_row[:, None], float("-inf")).reshape(-1), "amax", include_self=True)
     cap = min(4 * cfg.local_cap, cfg.max_mp)
     return search.gather_local_points(state, local_mask, cap, priority=rel)
 
@@ -393,13 +434,17 @@ def track_frame_fused(state: ms.MapState, prev: frame_mod.FrameData,
                       prev_Tcw: torch.Tensor, prev_mp: torch.Tensor,
                       velocity: torch.Tensor, tstate: torch.Tensor,
                       local_pts: search.LocalPoints, cur: frame_mod.FrameData,
-                      calib: cam_mod.CameraParams, cfg: SlamConfig, frame_id: int):
+                      calib: cam_mod.CameraParams, cfg: SlamConfig, frame_id):
     """One whole tracking frame: motion model, reference-KF fallback,
-    local map, NeedNewKeyFrame and keyframe insertion.
+    local map, NeedNewKeyFrame and keyframe insertion, with no host read.
 
-    tstate: [3] int32 (last_kf_frame, ref_kf_tracked, only_tracking flag).
-    The fallback and the insertion are host `if`s on scalars read back
-    from the device (one read each).
+    tstate: [3] int32 (last_kf_frame, ref_kf_tracked, only_tracking flag);
+    frame_id: a 0-dim int32 tensor on the device (or an int).  The
+    reference's two `lax.cond`s are computed both ways and selected on the
+    device: `track_reference_kf` and `insert_keyframe_impl` run on every
+    frame and `select` keeps their outputs where the fallback or the
+    insertion is due (one dense match and one pose BA, and one insertion,
+    of device work a frame when neither is).
 
     Returns (new_state, Tcw, frame_mp, velocity_new, tstate_new,
     scalars [8] int32: [ok, n_inl, inserted, kf_slot, n_kf,
@@ -408,22 +453,23 @@ def track_frame_fused(state: ms.MapState, prev: frame_mod.FrameData,
     """
     dev = prev_Tcw.device
     i32 = torch.int32
+    fid = _device_scalar(frame_id, i32, dev)
     last_kf_frame, ref_kf_tracked = tstate[0], tstate[1]
     only_tracking = tstate[2] > 0
 
-    Tcw2, fmp2, n_match2, n_inl2, n_map_inl1 = track_motion_model(
+    Tcw1, fmp1, n_match1, n_inl1, n_map_inl1 = track_motion_model(
         state, prev, prev_Tcw, prev_mp, velocity, cur, calib, cfg)
-    n_inl1_h, n_map_inl1_h = torch.stack([n_inl2, n_map_inl1]).tolist()
-    if n_inl1_h < cfg.min_matches_motion or n_map_inl1_h < 10:
-        Tcw2, fmp2, n_match2, n_inl2 = track_reference_kf(
-            state, _newest_kf(state), prev_Tcw, cur, calib, cfg)
+    use_fallback = (n_inl1 < cfg.min_matches_motion) | (n_map_inl1 < 10)
+    fallback = track_reference_kf(state, _newest_kf(state), prev_Tcw, cur, calib, cfg)
+    Tcw2, fmp2, n_match2, n_inl2 = select(use_fallback, fallback,
+                                          (Tcw1, fmp1, n_match1, n_inl1))
     pre_ok = n_inl2 >= cfg.min_matches_motion
 
     state3, Tcw3, fmp3, n_inl3, n_ct, n_cu = track_local_map(
         state, Tcw2, cur, fmp2, local_pts, calib, cfg)
     ok = pre_ok & (n_inl3 >= cfg.min_inliers_track)
 
-    since_kf = frame_id - last_kf_frame
+    since_kf = fid - last_kf_frame
     C, F = cur.desc.shape[0], cur.desc.shape[1]
     tct, tcu = close_point_thresholds(cfg, C * F)
     need_close = (n_ct < tct) & (n_cu > tcu)
@@ -434,32 +480,97 @@ def track_frame_fused(state: ms.MapState, prev: frame_mod.FrameData,
     need_kf = (ok & ~only_tracking & capacity & (n_inl3 > 15)
                & ((since_kf >= cfg.max_frames_kf)
                   | ((since_kf >= cfg.min_frames_kf) & (weak | need_close))))
-    if bool(need_kf):
-        state4, fmp4 = insert_keyframe_impl(state3, cur, Tcw3, fmp3, calib, cfg,
-                                            frame_id, unlimited_new=False)
-        kf_slot = _newest_kf(state4)
-        inserted = torch.tensor(1, dtype=i32, device=dev)
-    else:
-        state4, fmp4 = state3, fmp3
-        kf_slot = torch.tensor(-1, dtype=i32, device=dev)
-        inserted = torch.tensor(0, dtype=i32, device=dev)
+    state_kf, fmp_kf = insert_keyframe_impl(state3, cur, Tcw3, fmp3, calib, cfg, fid,
+                                            unlimited_new=False)
+    state4, fmp4 = select(need_kf, (state_kf, fmp_kf), (state3, fmp3))
+    kf_slot = torch.where(need_kf, _newest_kf(state_kf), -1)
+    inserted = need_kf.to(i32)
 
     Tcw_out = torch.where(ok, Tcw3, prev_Tcw)
     vel_out = torch.where(ok, Tcw3 @ se3.inverse(prev_Tcw),
                           torch.eye(4, dtype=Tcw3.dtype, device=dev))
-    fid = torch.tensor(frame_id, dtype=i32, device=dev)
     tstate_new = torch.stack([
-        torch.where(inserted > 0, fid, last_kf_frame),
-        torch.where(inserted > 0, n_inl3, ref_kf_tracked),
+        torch.where(need_kf, fid, last_kf_frame),
+        torch.where(need_kf, n_inl3, ref_kf_tracked),
         tstate[2],
     ])
     scalars = torch.stack([ok.to(i32), n_inl3, inserted, kf_slot,
                            state4.n_kf, n_ct, n_cu, n_match2]).to(i32)
     ref_slot_out = _newest_kf(state4)
-    ref_pose_out = state4.kf_Tcw[ref_slot_out.long()]
-    ref_fid_out = state4.kf_frame_id[ref_slot_out.long()]
+    ref_pose_out = _row(state4.kf_Tcw, ref_slot_out)
+    ref_fid_out = _row(state4.kf_frame_id, ref_slot_out)
     return (state4, Tcw_out, fmp4, vel_out, tstate_new, scalars,
             ref_slot_out, ref_pose_out, ref_fid_out)
+
+
+def track_frame_fused_images(state: ms.MapState, prev: frame_mod.FrameData,
+                             prev_Tcw: torch.Tensor, prev_mp: torch.Tensor,
+                             velocity: torch.Tensor, tstate: torch.Tensor,
+                             local_pts: search.LocalPoints, grays: torch.Tensor,
+                             depths: torch.Tensor, calib: cam_mod.CameraParams,
+                             cfg: SlamConfig, frame_id):
+    """The fused step including the frame's build: grays, depths [C, H, W]
+    in; ORB extraction, undistortion, depth association, the tracking
+    cascade and the conditional keyframe insertion, with no host read.
+
+    Returns (frame,) + `track_frame_fused`'s outputs.
+    """
+    fr = frame_mod.build_frame(grays, depths, calib, cfg.orb)
+    out = track_frame_fused(state, prev, prev_Tcw, prev_mp, velocity, tstate, local_pts,
+                            fr, calib, cfg, frame_id)
+    return (fr,) + tuple(out)
+
+
+def scan_step(state, prev, prev_Tcw, prev_mp, velocity, tstate, local_pts, grays, depths,
+              calib: cam_mod.CameraParams, cfg: SlamConfig, frame_id):
+    """One frame of `track_frames_scan`: `track_frame_fused_images`, then
+    the local-point cache rebuilt from the new state where a keyframe went
+    in (computed on every frame, selected on the device).
+
+    Returns (carry, out): carry (state, frame, Tcw, frame_mp, velocity,
+    tstate, local_pts, frame_id + 1), the next frame's inputs; out
+    (scalars, ref_slot, ref_pose, ref_fid, Tcw).
+    """
+    (fr, st, Tcw, fmp, vel, tst, scalars, ref_slot, ref_pose,
+     ref_fid) = track_frame_fused_images(state, prev, prev_Tcw, prev_mp, velocity, tstate,
+                                         local_pts, grays, depths, calib, cfg, frame_id)
+    lpts = select(scalars[2] > 0, build_local_points_cache(st, scalars[3], cfg), local_pts)
+    fid = _device_scalar(frame_id, torch.int32, Tcw.device)
+    return ((st, fr, Tcw, fmp, vel, tst, lpts, fid + 1),
+            (scalars, ref_slot, ref_pose, ref_fid, Tcw))
+
+
+def track_frames_scan(state: ms.MapState, prev: frame_mod.FrameData,
+                      prev_Tcw: torch.Tensor, prev_mp: torch.Tensor,
+                      velocity: torch.Tensor, tstate: torch.Tensor,
+                      local_pts: search.LocalPoints, grays_G: torch.Tensor,
+                      depths_G: torch.Tensor, calib: cam_mod.CameraParams,
+                      cfg: SlamConfig, frame_id0):
+    """A chunk of G frames (grays_G, depths_G [G, C, H, W]), each one
+    `scan_step`, with no host read: keyframes go in on the device and the
+    local-point cache is rebuilt on the device after each insertion, so the
+    later frames of the chunk search the new anchor.  The caller reads the
+    stacked [G, 8] scalars back once a chunk and runs the mapping stage
+    between chunks.
+
+    On the card the chunk is G replays of one CUDA graph of `scan_step`
+    (`fused_graph.scan_chunk`); on the CPU the steps run one by one.
+
+    Returns (state, prev, prev_Tcw, prev_mp, velocity, tstate, local_pts,
+    outs): the carry after the last frame, and outs (scalars [G, 8],
+    ref_slot [G], ref_pose [G, 4, 4], ref_fid [G], Tcw [G, 4, 4]).
+    """
+    if grays_G.device.type == "cuda":
+        from . import fused_graph
+
+        return fused_graph.scan_chunk(state, prev, prev_Tcw, prev_mp, velocity, tstate,
+                                      local_pts, grays_G, depths_G, calib, cfg, frame_id0)
+    carry = (state, prev, prev_Tcw, prev_mp, velocity, tstate, local_pts, frame_id0)
+    outs = []
+    for g in range(grays_G.shape[0]):
+        carry, out = scan_step(*carry[:7], grays_G[g], depths_G[g], calib, cfg, carry[7])
+        outs.append(out)
+    return carry[:7] + (tuple(torch.stack(o) for o in zip(*outs)),)
 
 
 class TrackState:
@@ -473,9 +584,13 @@ class Tracker:
 
     With `pipelined=True` each OK frame runs `track_frame_fused` and its
     status scalars are resolved `pipeline_depth` frames later, exactly as in
-    the reference; `fuse_extraction` keeps the reference's ordering of
-    extraction and resolution (resolve first, then extract) -- in eager
-    PyTorch extraction and tracking are the same launches either way.
+    the reference; on a CUDA device they come back through a pinned host
+    ring, each copy with an event that the resolution waits on.  With
+    `fuse_extraction` too, `process` runs an OK frame as
+    `track_frame_fused_images` on a `fused_graph.FusedStep`: one replay of a
+    CUDA graph a frame on the card (captured on the first OK frame), the
+    function itself on the CPU.  The first frame and the LOST path stay
+    eager.
 
     The tracker runs on the CUDA device unless the caller asks for another
     one (`device="cpu"`, as the CPU tests do); with `device=None` and no
@@ -497,6 +612,14 @@ class Tracker:
         self.pipelined = pipelined
         self.pipeline_depth = max(int(pipeline_depth), 1)
         self.fuse_extraction = fuse_extraction
+        self.fused = None        # the FusedStep of `fuse_extraction`, made on first use
+        self._host_ring = self._ring_events = None
+        if self.device.type == "cuda":
+            # pinned status scalars, a slot more than frames can be pending
+            n = self.pipeline_depth + 1
+            self._host_ring = torch.empty((n, 8), dtype=torch.int32, pin_memory=True)
+            self._ring_events = [torch.cuda.Event() for _ in range(n)]
+        self._ring_pos = 0
         self.reset()
 
     def reset(self):
@@ -555,17 +678,35 @@ class Tracker:
 
     def process(self, grays, depths, timestamp: float | None = None):
         """Track one rig frame: grays, depths [C, H, W] (numpy or tensors)."""
-        grays = torch.as_tensor(grays, dtype=torch.float32, device=self.device)
-        depths = torch.as_tensor(depths, dtype=torch.float32, device=self.device)
         if (self.pipelined and self.fuse_extraction
                 and self.state == TrackState.OK):
             self._drain_pending(keep=self.pipeline_depth - 1)
+            if self.state == TrackState.OK:  # resolution may flip to LOST
+                self._ts = timestamp if timestamp is not None else self.frame_id / 30.0
+                return self._process_ok_fused_images(grays, depths)
+        grays = torch.as_tensor(grays, dtype=torch.float32, device=self.device)
+        depths = torch.as_tensor(depths, dtype=torch.float32, device=self.device)
         fr = frame_mod.build_frame(grays, depths, self.calib, self.cfg.orb)
         return self.process_frame(fr, timestamp)
 
+    def _scalars_to_host(self, scalars: torch.Tensor):
+        """Start the copy of a frame's status scalars to the host: on CUDA a
+        non-blocking copy into the next slot of a pinned ring, with an event
+        to wait on.  Returns (tensor to read, event or None)."""
+        if scalars.device.type != "cuda":
+            return scalars, None
+        i = self._ring_pos % self._host_ring.shape[0]
+        self._ring_pos += 1
+        self._host_ring[i].copy_(scalars, non_blocking=True)
+        self._ring_events[i].record()
+        return self._host_ring[i], self._ring_events[i]
+
     def _push_pending(self, scalars):
+        """Queue a frame's status scalars (after its `_record`)."""
+        scalars, event = self._scalars_to_host(scalars)
         self._pending.append({
             "scalars": scalars,
+            "event": event,
             "frame_id": self.frame_id,
             "traj_idx": len(self.trajectory) - 1,
         })
@@ -581,6 +722,8 @@ class Tracker:
         if not self._pending:
             return
         pending = self._pending.pop(0)
+        if pending["event"] is not None:
+            pending["event"].synchronize()
         ok, n_inl, inserted, kf_slot, _n_kf, _nct, _ncu, _nm = pending["scalars"].tolist()
         fid = pending["frame_id"]
         traj_idx = pending["traj_idx"]
@@ -601,14 +744,44 @@ class Tracker:
             self.invalidate_local_cache()
             self._apply_pose_correction()
 
+    def _process_ok_fused_images(self, grays, depths):
+        """An OK frame on the `FusedStep`: the tracker's state goes into its
+        buffers (only what changed since the last frame is copied), one
+        replay, then the pose, the reference keyframe and the status scalars
+        are copied out, all without a host wait."""
+        from . import fused_graph  # it imports this module
+
+        if self.fused is None:
+            self.fused = fused_graph.FusedStep(self.calib, self.cfg, self.device)
+        fs = self.fused
+        if self._tstate_dirty or self._tstate_dev is None:
+            tstate = (self.last_kf_frame, self.ref_kf_tracked, 0)
+            self._tstate_dirty = False
+        else:
+            tstate = self._tstate_dev
+        fs.load(state=self.map, prev=self.prev_frame, prev_Tcw=self.prev_Tcw,
+                prev_mp=self.prev_mp, velocity=self.velocity, tstate=tstate,
+                local_pts=self._ensure_local_pts(), frame_id=self.frame_id)
+        fs.tstate[2].fill_(1 if self.only_tracking else 0)
+        fs.put_images(grays, depths)
+        fs.run()
+        with fused_graph.no_host_sync(self.device):
+            self.Tcw = fs.prev_Tcw.clone()
+            self._record(fs.ref_slot.clone(), fs.ref_pose.clone(), fs.ref_fid.clone())
+            self._push_pending(fs.scalars)
+        self.map, self.prev_frame, self.prev_mp = fs.state, fs.prev, fs.prev_mp
+        self.prev_Tcw, self.velocity, self._tstate_dev = fs.prev_Tcw, fs.velocity, fs.tstate
+        self._local_pts = fs.local_pts
+        self.frame_id += 1
+        return self.state
+
     def _process_ok_fused(self, fr: frame_mod.FrameData):
         if self._tstate_dirty or self._tstate_dev is None:
-            self._tstate_dev = torch.tensor(
-                [self.last_kf_frame, self.ref_kf_tracked, 0], dtype=torch.int32,
-                device=self.device)
+            self._tstate_dev = _filled([self.last_kf_frame, self.ref_kf_tracked, 0],
+                                       torch.int32, self.device)
             self._tstate_dirty = False
         tstate = self._tstate_dev.clone()
-        tstate[2] = 1 if self.only_tracking else 0
+        tstate[2].fill_(1 if self.only_tracking else 0)
         (self.map, self.Tcw, frame_mp, self.velocity, self._tstate_dev, scalars,
          ref_slot, ref_pose, ref_fid) = track_frame_fused(
             self.map, self.prev_frame, self.prev_Tcw, self.prev_mp, self.velocity,
@@ -673,8 +846,7 @@ class Tracker:
         n_inl, n_map_inl = torch.stack([n_inl, n_map_inl]).tolist()
         if n_inl < cfg.min_matches_motion or n_map_inl < 10:
             Tcw, frame_mp, n_match, n_inl = track_reference_kf(
-                self.map, torch.tensor(self.last_kf_slot, device=self.device),
-                self.prev_Tcw, fr, self.calib, cfg)
+                self.map, self.last_kf_slot, self.prev_Tcw, fr, self.calib, cfg)
             n_inl = int(n_inl)
         if n_inl < cfg.min_matches_motion:
             self.state = TrackState.LOST
@@ -735,9 +907,11 @@ class Tracker:
 
     def _record(self, ref_slot=None, ref_pose=None, ref_fid=None):
         if ref_pose is None:
+            # copies: the map may be a FusedStep's buffers, which the next
+            # replay rewrites
             ref_slot = self.last_kf_slot
-            ref_pose = self.map.kf_Tcw[self.last_kf_slot]
-            ref_fid = self.map.kf_frame_id[self.last_kf_slot]
+            ref_pose = self.map.kf_Tcw[self.last_kf_slot].clone()
+            ref_fid = self.map.kf_frame_id[self.last_kf_slot].clone()
         self.trajectory.append((
             self.frame_id, self._ts, ref_slot,
             (self.Tcw, ref_pose, ref_fid),

@@ -14,6 +14,8 @@ may write different values, `scatter_set_last` fixes the winner.
 
 from __future__ import annotations
 
+import functools
+
 from typing import NamedTuple
 
 import torch
@@ -202,7 +204,7 @@ def allocate_mp_slots(mp_valid: torch.Tensor, want: torch.Tensor) -> torch.Tenso
     M = mp_valid.shape[0]
     dev = mp_valid.device
     occupied = mp_valid.clone()
-    occupied[M - 1] = True
+    occupied[M - 1].fill_(True)   # a fill: no copy from the host
     free = ~occupied
     free_rank = torch.cumsum(free.to(torch.int32), 0) - 1
     slot_of_rank = torch.full((M,), -1, dtype=torch.int32, device=dev)
@@ -245,12 +247,17 @@ def scale_range_from_obs(dist: torch.Tensor, level: torch.Tensor,
     return min_d, max_d
 
 
+@functools.lru_cache(maxsize=None)
+def _log_scale(scale_factor: float) -> float:
+    """log of the float32 scale factor, taken in float32 (once per value)."""
+    return float(torch.log(torch.tensor(scale_factor, dtype=torch.float32)))
+
+
 def predict_scale(dist: torch.Tensor, max_dist: torch.Tensor,
                   scale_factor: float, n_levels: int) -> torch.Tensor:
     """MapPoint::PredictScale."""
     ratio = torch.clamp(max_dist, min=1e-6) / torch.clamp(dist, min=1e-6)
-    log_sf = float(torch.log(torch.tensor(scale_factor, dtype=torch.float32)))
-    lvl = torch.ceil(torch.log(ratio) / log_sf).to(torch.int32)
+    lvl = torch.ceil(torch.log(ratio) / _log_scale(scale_factor)).to(torch.int32)
     return torch.clamp(lvl, 0, n_levels - 1)
 
 

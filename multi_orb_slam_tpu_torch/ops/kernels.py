@@ -9,7 +9,9 @@ Counterpart of `multi_orb_slam_tpu/ops/pallas_kernels.py`.  Each kernel has
 - a plain PyTorch version with the same semantics (`*_plain`), which the
   wrapper runs only for tensors on the CPU,
 - a launch count (`LAUNCHES[name]`), raised by one where the wrapper
-  launches the kernel and nowhere else.
+  launches the kernel and nowhere else, and by the launches a captured CUDA
+  graph holds on each of its replays (`add_launches`, from
+  `frontend/fused_graph.py`: a replay calls no wrapper).
 
 | kernel           | replaces (pallas_kernels.py)              | source                 | bound on the H100 by |
 | ---------------- | ----------------------------------------- | ---------------------- | -------------------- |
@@ -43,6 +45,13 @@ LAUNCHES = {"fast_score": 0, "gather_patches": 0, "window_match": 0,
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def add_launches(counts: dict) -> None:
+    """Count one replay of a captured CUDA graph: `counts` are the launches
+    its capture made, kernel by kernel."""
+    for k, v in counts.items():
+        LAUNCHES[k] += v
 
 
 def _route(*tensors: torch.Tensor) -> bool:
@@ -94,6 +103,13 @@ FAST_OFFSETS = (
 
 def _extent_mask(extents: Sequence[tuple[int, int]], H: int, W: int,
                  device) -> torch.Tensor:
+    """[B, H, W] bool: inside image b's extent (cached; do not write to it)."""
+    return _extent_mask_cached(tuple((int(h), int(w)) for h, w in extents), H, W,
+                               torch.device(device))
+
+
+@functools.lru_cache(maxsize=64)
+def _extent_mask_cached(extents: tuple, H: int, W: int, device: torch.device) -> torch.Tensor:
     hs = torch.tensor([e[0] for e in extents], device=device)
     ws = torch.tensor([e[1] for e in extents], device=device)
     yy = torch.arange(H, device=device)

@@ -66,10 +66,17 @@ def level_feature_counts(cfg: ORBConfig) -> list[int]:
     return counts
 
 
-def scale_factors(cfg: ORBConfig, device=None) -> torch.Tensor:
-    """Per-level scale factors sigma."""
-    return torch.tensor([cfg.scale_factor ** lvl for lvl in range(cfg.n_levels)],
+@functools.lru_cache(maxsize=None)
+def scale_table(scale_factor: float, n_levels: int, device: torch.device) -> torch.Tensor:
+    """[n_levels] float32 scale factors sigma^level, built once per device
+    (a constant, never a copy from the host inside a frame's work)."""
+    return torch.tensor([scale_factor ** lvl for lvl in range(n_levels)],
                         dtype=torch.float32, device=device)
+
+
+def scale_factors(cfg: ORBConfig, device=None) -> torch.Tensor:
+    """Per-level scale factors sigma (the cached table: do not write to it)."""
+    return scale_table(cfg.scale_factor, cfg.n_levels, torch.device(device or "cpu"))
 
 
 # ---------------------------------------------------------------------------

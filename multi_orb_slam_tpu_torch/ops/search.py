@@ -17,7 +17,7 @@ import torch
 from ..geometry import camera as cam_mod
 from ..geometry import se3
 from ..mapping import map_state as ms
-from . import hamming, kernels
+from . import hamming, kernels, orb
 
 BIG = hamming.BIG
 _NO_QUERY_RADIUS = -1.0   # |du| < -1 is never true: the query has no candidate
@@ -120,8 +120,7 @@ def search_points_in_frame(
     """
     C, F = frame_valid.shape
     dev = frame_valid.device
-    sf = torch.tensor([scale_factor ** lvl for lvl in range(n_levels)],
-                      dtype=torch.float32, device=dev)
+    sf = orb.scale_table(scale_factor, n_levels, dev)
     uvs, rads, lvls, urs, masks = [], [], [], [], []
     for c in range(C):
         Tcam = T_rc[c] @ Tcw
@@ -195,8 +194,7 @@ def search_prev_frame(
     """
     C, F = frame_valid.shape
     dev = frame_valid.device
-    sf = torch.tensor([scale_factor ** lvl for lvl in range(n_levels)],
-                      dtype=torch.float32, device=dev)
+    sf = orb.scale_table(scale_factor, n_levels, dev)
     Q = C * F
     pw = prev_pw.reshape(Q, 3)
     q_valid = prev_pw_valid.reshape(Q)

@@ -48,6 +48,42 @@ def inv3(A: torch.Tensor) -> torch.Tensor:
     return torch.stack([c0, c1, c2], dim=-1) / det[..., None, None]
 
 
+# float32 square roots of the float32 gates, as the reference takes them
+_DELTA_MONO = float(np.sqrt(np.float32(CHI2_MONO)))
+_DELTA_STEREO = float(np.sqrt(np.float32(CHI2_STEREO)))
+
+
+def _robust_rows(e, is_st, posd, obs_ok, obs_is2):
+    """Per observation row: (active, row weights [N, 3], chi2, Huber delta,
+    the rows' information weights Wr [N, 3] with the Huber weight in)."""
+    dtype = e.dtype
+    act = obs_ok & posd
+    row = residuals.row_weights(is_st, dtype)
+    chi2 = torch.sum(e * e * row, -1) * obs_is2
+    delta = torch.where(is_st, _DELTA_STEREO, _DELTA_MONO)
+    r = torch.sqrt(torch.clamp(chi2, min=1e-12))
+    hw = torch.where(r > delta, delta / r, 1.0)
+    Wr = row * (obs_is2 * hw * act.to(dtype))[:, None]
+    return act, row, chi2, delta, Wr
+
+
+def _point_blocks(M, mp_idx, Jp, Wr):
+    """H_pp [M, 3, 3]: each point's sum of J_p^T W J_p over its rows."""
+    JTpW = Jp * Wr[:, :, None]
+    out = torch.zeros((M, 3, 3), dtype=Jp.dtype, device=Jp.device)
+    return out.index_add_(0, mp_idx, residuals.outer_rows(JTpW, Jp)), JTpW
+
+
+def point_information(mp_pos, mp_idx, obs_ok, obs_is2, residual_state, kf_Tcw):
+    """The undamped 3x3 blocks H_pp that `schur_lm` forms for its Schur
+    complement, at the poses `kf_Tcw` and points `mp_pos` given (with the
+    Huber weights of those residuals): each point's information, whose
+    smallest eigenvalue says how well the observations fix it."""
+    e, _, Jp, is_st, posd = residual_state(kf_Tcw, mp_pos, True)
+    Wr = _robust_rows(e, is_st, posd, obs_ok, obs_is2)[-1]
+    return _point_blocks(mp_pos.shape[0], mp_idx, Jp, Wr)[0]
+
+
 def schur_lm(kf_Tcw, mp_pos, kf_free, mp_valid, obs_kf, mp_idx, obs_ok, obs_is2,
              residual_state, n_outer, cg_iters, reduce=lambda t: t):
     """The LM outer loop over the matrix-free Schur complement, on N flat
@@ -67,9 +103,6 @@ def schur_lm(kf_Tcw, mp_pos, kf_free, mp_valid, obs_kf, mp_idx, obs_ok, obs_is2,
     dev, dtype = mp_pos.device, mp_pos.dtype
     free_f = kf_free.to(dtype)
     free_o = free_f[obs_kf][:, None, None]
-    # float32 square roots of the float32 gates, as the reference takes them
-    delta_m = float(np.sqrt(np.float32(CHI2_MONO)))
-    delta_s = float(np.sqrt(np.float32(CHI2_STEREO)))
     pad_pts = torch.where(mp_valid, 0.0, 1.0)[:, None, None] * torch.eye(3, dtype=dtype, device=dev)
     pad_kfs = torch.where(kf_free, 0.0, 1.0)[:, None, None] * torch.eye(6, dtype=dtype, device=dev)
 
@@ -86,18 +119,11 @@ def schur_lm(kf_Tcw, mp_pos, kf_free, mp_valid, obs_kf, mp_idx, obs_ok, obs_is2,
     costs = []
     for _ in range(n_outer):
         e, Jc, Jp, is_st, posd = residual_state(Tcw_all, pos_all, True)
-        act = obs_ok & posd
-        row = residuals.row_weights(is_st, dtype)
-        chi2 = torch.sum(e * e * row, -1) * obs_is2
-        delta = torch.where(is_st, delta_s, delta_m)
-        r = torch.sqrt(torch.clamp(chi2, min=1e-12))
-        hw = torch.where(r > delta, delta / r, 1.0)
-        Wr = row * (obs_is2 * hw * act.to(dtype))[:, None]
+        act, row, chi2, delta, Wr = _robust_rows(e, is_st, posd, obs_ok, obs_is2)
 
         Jc_eff = Jc * free_o
         JTcW = Jc_eff * Wr[:, :, None]
-        JTpW = Jp * Wr[:, :, None]
-        Hpp = scatter(M, mp_idx, residuals.outer_rows(JTpW, Jp))
+        Hpp, JTpW = _point_blocks(M, mp_idx, Jp, Wr)
         bp = scatter(M, mp_idx, residuals.jte_rows(JTpW, e))
         # per-observation camera-point coupling block U_n [6, 3]
         U = residuals.outer_rows(JTcW, Jp)

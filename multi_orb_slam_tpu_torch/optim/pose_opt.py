@@ -12,6 +12,8 @@ Control flow stays on the device, with no host sync per iteration:
   `active` flag; an inactive iteration leaves the carry unchanged;
 - the 6x6 solve is `torch.linalg.solve_ex`, which skips the error check
   (and its host sync);
+- every constant is a fill on the device (`torch.full`), never a copy from
+  the host, so a call can be captured into a CUDA graph;
 - the reference's `settled` `lax.cond` (skip a round whose inlier set
   reached a fixed point) runs the round and selects its input with
   `torch.where` -- the skipped round would reproduce the same pose, so
@@ -55,7 +57,7 @@ def optimize_pose(Tcw0: torch.Tensor, obs: PoseObs, T_rc: torch.Tensor,
     delta_stereo = float(np.sqrt(np.float32(CHI2_STEREO)))
     cam = obs.cam_idx.long()
     Trc, Ko = T_rc[cam], K[cam]
-    bfo = torch.as_tensor(bf, dtype=f32, device=dev).expand(cam.shape)
+    bfo = (bf if isinstance(bf, torch.Tensor) else torch.full((), bf)).to(dev, f32).expand(cam.shape)
     eye6 = 1e-9 * torch.eye(6, dtype=f32, device=dev)
 
     def residual(Tcw, want_jac):
@@ -83,8 +85,8 @@ def optimize_pose(Tcw0: torch.Tensor, obs: PoseObs, T_rc: torch.Tensor,
     def lm_round(Tcw_init, inlier, use_huber):
         H, g, chi2 = linearize(Tcw_init, inlier, use_huber)
         Tcw = Tcw_init
-        lam = torch.tensor(1e-3, dtype=f32, device=dev)
-        no_prog = torch.tensor(0, dtype=torch.int32, device=dev)
+        lam = torch.full((), 1e-3, dtype=f32, device=dev)
+        no_prog = torch.zeros((), dtype=torch.int32, device=dev)
         for _ in range(n_iters):
             active = no_prog < 2
             Hd = H + lam * torch.diag(torch.diag(H)) + eye6
@@ -113,11 +115,11 @@ def optimize_pose(Tcw0: torch.Tensor, obs: PoseObs, T_rc: torch.Tensor,
 
     inlier = obs.mask
     Tcw = Tcw0
-    settled = torch.tensor(False, device=dev)
+    settled = torch.zeros((), dtype=torch.bool, device=dev)
     for it in range(n_rounds):
-        use_huber = torch.tensor(it < 2, device=dev)
+        use_huber = it < 2
         if it == 2:
-            settled = torch.tensor(False, device=dev)
+            settled = torch.zeros((), dtype=torch.bool, device=dev)
         Tcw = torch.where(settled, Tcw, lm_round(Tcw0, inlier, use_huber))
         new_inlier = torch.where(settled, inlier, reclassify(Tcw))
         settled = settled | torch.all(new_inlier == inlier)

@@ -35,8 +35,9 @@ def reproj_residual(
     cx, cy = K[..., 2], K[..., 3]
 
     x, y, z = Xc[..., 0], Xc[..., 1], Xc[..., 2]
-    bfo = torch.as_tensor(bf, dtype=x.dtype, device=x.device).expand(
-        torch.broadcast_shapes(torch.as_tensor(bf).shape, fx.shape, x.shape))
+    if not isinstance(bf, torch.Tensor):
+        bf = torch.full((), bf)
+    bfo = bf.to(x.device, x.dtype).expand(torch.broadcast_shapes(bf.shape, fx.shape, x.shape))
     pos_depth = z > 1e-3
     zs = torch.where(pos_depth, z, torch.ones_like(z))
     invz = 1.0 / zs

@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from ..optim import residuals
+from ..optim.global_ba import point_information as global_point_information
 from ..optim.global_ba import schur_lm
 from .multihost import Mesh, all_reduce_sum, rank_block
 
@@ -122,6 +123,27 @@ def gather_points(pos_local: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     return all_reduce_sum(full, mesh)
 
 
+def _rank_rows(flat: FlatBA, rank: int, T_rc, K_intr, bf):
+    """This rank's observation rows: (obs_kf, local point index, which rows
+    count, `residual_state(Tcw, pos_local, want_jac)` for `schur_lm`)."""
+    Ml = flat.mp_pos.shape[0]
+    # global -> local point index
+    mp_local = flat.obs_mp.long() - rank * Ml
+    mp_idx = mp_local.clamp(0, Ml - 1)
+    obs_ok = ((flat.obs_mp >= 0) & (mp_local >= 0) & (mp_local < Ml)
+              & flat.mp_valid[mp_idx])
+    obs_kf = flat.obs_kf.long()
+    cam = flat.obs_cam.long()
+    T_rc_o, K_o = T_rc[cam], K_intr[cam]
+
+    def residual_state(Tcw_all, pos_local, want_jac):
+        return residuals.reproj_residual(
+            Tcw_all[obs_kf], pos_local[mp_idx], T_rc_o, K_o, bf, flat.obs_uvr,
+            want_jac=want_jac)
+
+    return obs_kf, mp_idx, obs_ok, residual_state
+
+
 def make_dist_ba_step(mesh: Mesh, n_outer: int = 8, cg_iters: int = 40):
     """The distributed BA step for this rank of the mesh.
 
@@ -132,23 +154,18 @@ def make_dist_ba_step(mesh: Mesh, n_outer: int = 8, cg_iters: int = 40):
     problem."""
 
     def run(flat: FlatBA, T_rc, K_intr, bf):
-        Ml = flat.mp_pos.shape[0]
-        # global -> local point index
-        mp_local = flat.obs_mp.long() - mesh.rank * Ml
-        mp_idx = mp_local.clamp(0, Ml - 1)
-        obs_ok = ((flat.obs_mp >= 0) & (mp_local >= 0) & (mp_local < Ml)
-                  & flat.mp_valid[mp_idx])
-        obs_kf = flat.obs_kf.long()
-        cam = flat.obs_cam.long()
-        T_rc_o, K_o = T_rc[cam], K_intr[cam]
-
-        def residual_state(Tcw_all, pos_local, want_jac):
-            return residuals.reproj_residual(
-                Tcw_all[obs_kf], pos_local[mp_idx], T_rc_o, K_o, bf, flat.obs_uvr,
-                want_jac=want_jac)
-
+        obs_kf, mp_idx, obs_ok, residual_state = _rank_rows(flat, mesh.rank, T_rc, K_intr, bf)
         return schur_lm(flat.kf_Tcw, flat.mp_pos, flat.kf_free, flat.mp_valid, obs_kf,
                         mp_idx, obs_ok, flat.obs_is2, residual_state, n_outer, cg_iters,
                         reduce=lambda t: all_reduce_sum(t, mesh))
 
     return run
+
+
+def point_information(flat: FlatBA, T_rc, K_intr, bf, kf_Tcw, mp_pos) -> torch.Tensor:
+    """[M, 3, 3] H_pp of a whole problem (`shard_problem`'s at world 1) at the
+    poses and points given: the blocks the step forms for its Schur
+    complement (`global_ba.point_information`)."""
+    _, mp_idx, obs_ok, residual_state = _rank_rows(flat, 0, T_rc, K_intr, bf)
+    return global_point_information(mp_pos, mp_idx, obs_ok, flat.obs_is2, residual_state,
+                                    kf_Tcw)

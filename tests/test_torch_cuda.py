@@ -734,16 +734,28 @@ def test_cuda_build_frame_stereo_matches_cpu():
           f"{int(both.sum())} same right matches")
 
 
+DIST_BA_INFO_FLOOR = 10.0   # m^-2: the smallest H_pp eigenvalue of a point held to 1 mm
+DIST_BA_MAHALANOBIS = 0.1   # sqrt(dp^T H_pp dp) of every point: a tenth of its own sigma
+
+
 @pytest.mark.cuda
 def test_cuda_dist_ba_nccl_world_one_matches_gloo_world_two():
     """The distributed BA on the card: world 1 on a real NCCL process group
     (its timed step under `set_sync_debug_mode("error")`) against world 2 on
     gloo, two ranks sharing the card, on a small two-camera problem: poses
-    within 5e-4, the points within 1e-3 m, every rank the same poses."""
+    within 5e-4, every rank the same poses.
+
+    The points are held in the metric of their information: H_pp, the 3x3
+    block the step forms for its Schur complement, at world 1's solution.
+    Many points of this problem are seen once or twice, so a change of
+    summation order moves them freely along their rays (smallest eigenvalue
+    down to ~0.03 m^-2, a standard deviation of metres): every point within
+    a tenth of its own standard deviation, sqrt(dp^T H_pp dp) <= 0.1, and
+    within 1 mm wherever the smallest eigenvalue is at least 10 m^-2."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from multi_orb_slam_tpu_torch.drivers import bench_dist_ba
-    from multi_orb_slam_tpu_torch.parallel import dryrun, multihost
+    from multi_orb_slam_tpu_torch.parallel import dist_ba, dryrun, multihost
 
     T_rc = np.stack([np.eye(4, dtype=np.float32)] * 2)
     T_rc[1, 0, 3] = 0.1
@@ -753,8 +765,113 @@ def test_cuda_dist_ba_nccl_world_one_matches_gloo_world_two():
     assert one["backend"] == "nccl" and one["sync_checked"]
     assert two[0]["backend"] == "gloo" and np.array_equal(two[0]["Tcw"], two[1]["Tcw"])
     np.testing.assert_allclose(two[0]["Tcw"], one["Tcw"], atol=5e-4)
-    np.testing.assert_allclose(two[0]["pos"], one["pos"], atol=1e-3)
+    flat = dist_ba.flatten_problem(*(prob[k] for k in dryrun.FLAT_KEYS), 1)
+    H = dist_ba.point_information(
+        dist_ba.FlatBA(*(torch.from_numpy(np.asarray(a)) for a in flat)),
+        torch.from_numpy(prob["T_rc"]), torch.from_numpy(prob["K_intr"]),
+        torch.tensor(float(prob["bf"])), torch.from_numpy(one["Tcw"]),
+        torch.from_numpy(one["pos"])).double().numpy()
+    dp = (two[0]["pos"] - one["pos"]).astype(np.float64)
+    mahalanobis = np.sqrt(np.maximum(np.einsum("mi,mij,mj->m", dp, H, dp), 0.0))
+    eig_min = np.linalg.eigvalsh(H)[:, 0]
+    held = eig_min >= DIST_BA_INFO_FLOOR
+    assert held.sum() >= 0.25 * len(held), held.sum()
+    assert mahalanobis.max() <= DIST_BA_MAHALANOBIS, mahalanobis.max()
+    np.testing.assert_allclose(two[0]["pos"][held], one["pos"][held], atol=1e-3)
     assert one["costs"][-1] < one["costs"][0]
     print(f"dist BA card, world 1 nccl vs 2 gloo: Tcw within "
-          f"{np.abs(two[0]['Tcw'] - one['Tcw']).max():.3g}, points within "
-          f"{np.abs(two[0]['pos'] - one['pos']).max():.3g}, costs {one['costs'][[0, -1]]}")
+          f"{np.abs(two[0]['Tcw'] - one['Tcw']).max():.3g}, sqrt(dp^T H_pp dp) <= "
+          f"{mahalanobis.max():.3g}, {int(held.sum())} of {len(held)} points with an "
+          f"eigenvalue >= {DIST_BA_INFO_FLOOR} within {np.abs(dp[held]).max():.3g} m, all "
+          f"within {np.abs(dp).max():.3g} m, costs {one['costs'][[0, -1]]}")
+
+
+def _fused_tracker(dev, fuse=False):
+    """The small scene, and a pipelined tracker on `dev` after its first
+    frame (the map initialized)."""
+    from multi_orb_slam_tpu_torch.frontend import tracking
+
+    cfg, calib, seq = _small_scene()
+    tracker = tracking.Tracker(calib, cfg, pipelined=True, pipeline_depth=3,
+                               fuse_extraction=fuse, device=dev)
+    tracker.process(seq.grays[0], seq.depths[0])
+    return cfg, tracker, seq
+
+
+@pytest.mark.cuda
+def test_cuda_fused_graph_replays_equal_eager_calls():
+    """Five consecutive frames of `track_frame_fused_images`, each once
+    eagerly and once as a replay of the `FusedStep`'s CUDA graph, each chain
+    on its own outputs: every output and every buffer the same bits; each
+    replay adds the launches of its capture (one `fast_score`, one
+    `gather_patches`, three `window_match`) to the counts, and nothing more."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from multi_orb_slam_tpu_torch.frontend import fused_graph, tracking
+
+    cfg, tr, seq = _fused_tracker("cuda")
+    lp = tr._ensure_local_pts()
+    tstate = torch.tensor([tr.last_kf_frame, tr.ref_kf_tracked, 0], dtype=torch.int32,
+                          device="cuda")
+    carry = (tr.map, tr.prev_frame, tr.prev_Tcw, tr.prev_mp, tr.velocity, tstate, lp)
+    fs = fused_graph.FusedStep(tr.calib, cfg, "cuda")
+    fs.load(state=carry[0], prev=carry[1], prev_Tcw=carry[2], prev_mp=carry[3],
+            velocity=carry[4], tstate=carry[5], local_pts=lp, frame_id=1)
+    inserted = 0
+    for i in range(1, 6):
+        g = torch.from_numpy(seq.grays[i]).float().cuda()
+        d = torch.from_numpy(seq.depths[i]).float().cuda()
+        out = tracking.track_frame_fused_images(
+            *carry, g, d, tr.calib, cfg, torch.full((), i, dtype=torch.int32, device="cuda"))
+        kernels.reset_launch_counts()
+        fs.put_images(g, d)
+        fs.run()
+        assert kernels.LAUNCHES == fs.graph_launches
+        carry = (out[1], out[0], out[2], out[3], out[4], out[5], lp)
+        pairs = [(fs.state, out[1]), (fs.prev, out[0]), (fs.prev_Tcw, out[2]),
+                 (fs.prev_mp, out[3]), (fs.velocity, out[4]), (fs.tstate, out[5]),
+                 (fs.scalars, out[6]), (fs.ref_slot, out[7]), (fs.ref_pose, out[8]),
+                 (fs.ref_fid, out[9])]
+        for k, (a, b) in enumerate(pairs):
+            for x, y in zip(fused_graph._tensors(a), fused_graph._tensors(b)):
+                assert torch.equal(x, y), (i, k)
+        assert int(fs.frame_id) == i + 1
+        inserted += int(out[6][2])
+    assert fs.n_captures == 1 and fs.n_replays == 5
+    assert fs.graph_launches == {"fast_score": 1, "gather_patches": 1, "window_match": 3,
+                                 "point_sums": 0}
+    print(f"fused graph: 5 replays the eager bits, {inserted} keyframes inserted, "
+          f"warm-up {fs.warmup_ms:.1f} ms, capture {fs.capture_ms:.1f} ms")
+
+
+@pytest.mark.cuda
+def test_cuda_fused_tracker_replays_read_nothing_back():
+    """The tracker with `fuse_extraction` on the card: every OK frame one
+    replay (with its copies out) under `set_sync_debug_mode("error")`, one
+    capture, and the same trajectory and map as the eager pipelined tracker;
+    one more replay with the scalars' pinned copy, under the mode set here."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    runs = {}
+    for fuse in (False, True):
+        cfg, tr, seq = _fused_tracker("cuda", fuse=fuse)
+        for g, d in zip(seq.grays[1:], seq.depths[1:]):
+            tr.process(g, d)
+        traj = np.stack([T for _, _, T, _ in tr.absolute_trajectory()])
+        runs[fuse] = (traj, tr)
+    tr = runs[True][1]
+    assert tr.fused.n_captures == 1 and tr.fused.n_replays == len(seq.grays) - 1
+    np.testing.assert_array_equal(runs[True][0], runs[False][0])
+    for name in tr.map._fields:
+        assert torch.equal(getattr(tr.map, name), getattr(runs[False][1].map, name)), name
+    host = torch.empty(8, dtype=torch.int32, pin_memory=True)
+    tr.fused.put_images(torch.from_numpy(seq.grays[-1]).cuda(),
+                        torch.from_numpy(seq.depths[-1]).cuda())
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        tr.fused.run()
+        host.copy_(tr.fused.scalars, non_blocking=True)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert host[0] in (0, 1)
