@@ -33,9 +33,13 @@ Phases (each raises on failure; the script then exits non-zero):
    `SlamConfig` and no mapping callback.
 4. Mapping path: all 60 orbit frames through the same tracker with
    `kf_inserted_cb` running `run_mapping_stage` and `covis_kf_count` (the
-   next keyframe's window hint), as `bench.py` sets it.  The orbit maps 4
-   keyframes and solves 2 local BAs; with no local BA (so no `point_sums`
-   launch) the phase fails.
+   next keyframe's window hint), as `bench.py` sets it.  Every stage is one
+   replay of the CUDA graph of `_mapping_stage_fused` (`MappingStep`,
+   captured on a window bucket's first use), which computes its local BA
+   (one `point_sums` launch) on every keyframe and takes it once the map
+   holds more than 2 keyframes.  The orbit maps 4 keyframes and takes 2
+   local BAs; with none taken, or with `point_sums` launched other than
+   once a stage, the phase fails.
    For each path every kernel's launch count is set to 0 just before and
    read just after; a path fails unless every frame tracks, ATE < 0.02 m,
    no pose or map point is NaN and every kernel of the path launched (the
@@ -50,7 +54,16 @@ Phases (each raises on failure; the script then exits non-zero):
    one capture was made and all four kernels launched (counted through the
    replays).  It prints the capture's ms, the kernels in the graph, eager and
    graph ms a frame, one replay's device ms (`torch.profiler`) and the
-   device ms of the two branches computed on every frame.  Then
+   device ms of the two branches computed on every frame, and the frames
+   that ran a mapping stage apart from the rest.  Then `mapping-graph`: the
+   fused-orbit run's last map and newest keyframe at the default
+   `SlamConfig`, each local-BA window bucket (12, 16, 24, 32 free
+   keyframes) forced through `covis_hint`: the eager body, then two replays
+   of the bucket's graph, each under `set_sync_debug_mode("error")` and
+   bit-equal to the body in every field; the capture's ms, a replay's ms
+   (CUDA events) against the body's, its device ms and operations
+   (`torch.profiler`), the live and total LM trips, and a
+   `{"mapping_graph": [...]}` line.  Then
    `track_frames_scan` over the same frames in chunks of 4 after the first
    (one [4, 8] read back a chunk, the mapping stage between chunks): every
    frame tracked, ATE < 0.02 m; ms a chunk and the keyframes.
@@ -73,7 +86,8 @@ Phases (each raises on failure; the script then exits non-zero):
    `tests/test_circuit_e2e.py` through `System` with loop closing and
    global BA (a loop closed, the GBA merged, ATE < 0.20 m, every loop role
    of `window_match` launched, the GBA dispatch held under
-   `torch.cuda.set_sync_debug_mode("error")`).
+   `torch.cuda.set_sync_debug_mode("error")`); the frames that ran the
+   keyframe stages are timed apart from the rest.
 7. The stereo path's kernel shapes (before the paths, with the other kernel
    phases): `fast_score` on the [2 x 8, 376, 1241] canvas of a KITTI-size
    stereo pair (1241 is no multiple of 4: the scalar-load path),
@@ -120,8 +134,8 @@ Phases (each raises on failure; the script then exits non-zero):
    table (within 1e-6, the query its own best).  The kernels are built by
    phase 1, so the ranks only load them.  A `{"distributed": ...}` line.
 12. A JSON line of per-kernel results (with `launches_stereo`,
-   `launches_driver`, `launches_distributed`, `launches_fused` and
-   `launches_scan`, and the stereo path's
+   `launches_driver`, `launches_distributed`, `launches_fused`,
+   `launches_scan` and `launches_mapping_graph`, and the stereo path's
    shapes under `kitti_shapes`), then the last line
    `{"ok": true, "device": {...}}`.
 
@@ -645,11 +659,12 @@ def run_path(name, frames, poses_gt, calib, cfg, mapping, fused=False, info=None
 
     tracker = tracking.Tracker(calib, cfg, pipelined=True, pipeline_depth=3,
                                fuse_extraction=fused)
-    map_ms, covis_pending, kf_frames = [], [None], []
+    map_ms, covis_pending, kf_frames, map_frames = [], [None], [], []
 
     def kf_cb(kf_slot):
         # as bench.py sets it: the mapping stage, then the covisible count
         # that the NEXT keyframe's stage takes as its window hint
+        map_frames.append(len(times))
         torch.cuda.synchronize()
         t = time.perf_counter()
         hint = int(covis_pending[0]) if covis_pending[0] is not None else None
@@ -664,8 +679,7 @@ def run_path(name, frames, poses_gt, calib, cfg, mapping, fused=False, info=None
 
     if mapping:
         tracker.kf_inserted_cb = kf_cb
-    windows0 = dict(local_mapping.STATS["ba_windows"])
-    ba0 = dict(local_ba.STATS)
+    windows0, ba0 = local_mapping.BA_WINDOWS.read(), local_ba.STATS.read()
     kernels.reset_launch_counts()
     times = []
     for g, d in frames:
@@ -691,14 +705,14 @@ def run_path(name, frames, poses_gt, calib, cfg, mapping, fused=False, info=None
     ms = np.asarray(times) * 1e3
     n_inserted = int(st.next_kf_id) - 1          # keyframes after the first
     windows = {k: v - windows0.get(k, 0)
-               for k, v in local_mapping.STATS["ba_windows"].items() if v - windows0.get(k, 0)}
-    solves = local_ba.STATS["solves"] - ba0["solves"]
-    iters = local_ba.STATS["iterations"] - ba0["iterations"]
+               for k, v in local_mapping.BA_WINDOWS.read().items() if v - windows0.get(k, 0)}
+    ba = {k: v - ba0.get(k, 0) for k, v in local_ba.STATS.read().items()}
+    solves, iters, trips = ba.get("solves", 0), ba.get("iterations", 0), ba.get("trips", 0)
     label = (f"{name}-{n}" + (" with mapping" if mapping else " tracking only")
              + (", fused step as a CUDA graph" if fused else ""))
     if info is not None:
         info.update(tracker=tracker, ms=ms, centres=est.numpy(), kf_frames=kf_frames,
-                    ate=ate)
+                    map_frames=map_frames, map_ms=np.asarray(map_ms), ate=ate)
     print(f"{label}: Tracker.process median {np.median(ms):.2f} ms/frame "
           f"(first frame {ms[0]:.2f} ms, max {ms.max():.2f} ms, "
           f"median from frame 8 on {np.median(ms[8:]):.2f} ms, total {ms.sum() / 1e3:.2f} s)")
@@ -711,7 +725,8 @@ def run_path(name, frames, poses_gt, calib, cfg, mapping, fused=False, info=None
               f"max {per_kf.max():.2f} ms each; local-BA windows (free keyframes: "
               f"solves) {windows}, point_sums rows {[4 * k for k in windows]}; "
               f"LM iterations {iters} in {solves} solves "
-              f"({iters / max(solves, 1):.1f} per solve)")
+              f"({iters / max(solves, 1):.1f} per solve), live of {trips} trips computed "
+              f"(a stage computes its local BA's trips on every keyframe)")
     print(f"  kernel launches: {launches}")
     if n_ok != n:
         raise AssertionError(f"{label}: only {n_ok}/{n} frames tracked")
@@ -741,19 +756,20 @@ def phase_main_paths(dev):
     if missing:
         raise AssertionError(f"tracking path never launched: {missing}")
     eager = {}
-    mapped, _, solves = run_path("orbit", frames, poses_gt, calib, cfg, mapping=True,
-                                 info=eager)
+    mapped, n_mapped, solves = run_path("orbit", frames, poses_gt, calib, cfg, mapping=True,
+                                        info=eager)
     missing = [k for k, v in mapped.items() if v <= 0]
-    if missing or solves == 0 or mapped["point_sums"] != solves:
+    if missing or solves == 0 or mapped["point_sums"] != n_mapped:
         raise AssertionError(f"mapping path on the orbit: never launched {missing}; "
-                             f"{solves} local-BA solves (none: no local BA was reached, "
-                             f"so `point_sums` never ran), {mapped['point_sums']} "
-                             f"point_sums launches")
-    fused = phase_fused_orbit(frames, poses_gt, calib, cfg, eager)
+                             f"{solves} local-BA solves (none: no stage reached n_kf > 2), "
+                             f"{mapped['point_sums']} point_sums launches in {n_mapped} "
+                             f"mapping stages (one a stage's graph)")
+    fused, fused_tracker = phase_fused_orbit(frames, poses_gt, calib, cfg, eager)
+    graph = phase_mapping_graph(fused_tracker, calib, cfg)
     scan = phase_scan(frames, poses_gt, calib, cfg)
     system = phase_system_reloc(frames, poses_gt, calib, cfg)
     firsts = np.stack([g.cpu().numpy() for g, _ in frames[:DIST_DRYRUN_WORLD]])
-    return tracking, mapped, system, firsts, fused, scan
+    return tracking, mapped, system, firsts, fused, scan, graph
 
 
 FUSED_CENTRE_LIMIT_M = 1e-3   # the graph's camera centres against the eager run's
@@ -812,6 +828,12 @@ def phase_fused_orbit(frames, poses_gt, calib, cfg, eager):
           f"{np.median(e_ms[8:]):.2f} / {np.median(g_ms[8:]):.2f}")
     print(f"  keyframes mapped: eager {eager['kf_frames']}, graph {info['kf_frames']}; "
           f"camera centres within {d_centre * 1e3:.4f} mm of the eager run's")
+    kf_ms = g_ms[info["map_frames"]]
+    rest = np.delete(g_ms, info["map_frames"] + [0])
+    print(f"  frames that ran a mapping stage (replay of its graph; the first of a bucket "
+          f"with its capture): {info['map_frames']}, ms {[round(float(x), 2) for x in kf_ms]} "
+          f"(the stage itself {[round(float(x), 2) for x in info['map_ms']]}); the other "
+          f"frames after the first: median {np.median(rest):.2f} ms")
     # one replay's span on the device, unprofiled (the tracer slows a graph)
     span_ms = cuda_ms(fs.run, reps=3, warmup=0)
     dev_ms, dev_ops = profiled_device(fs.run)
@@ -831,7 +853,10 @@ def phase_fused_orbit(frames, poses_gt, calib, cfg, eager):
         "warmup_ms": fs.warmup_ms, "capture_ms": fs.capture_ms, "replays": n_replays,
         "graph_kernels": fs.graph_launches, "replay_device_ms": dev_ms,
         "replay_device_ops": dev_ops, "replay_span_ms": span_ms,
-        "fallback_device_ms": fb_ms, "insertion_device_ms": ins_ms}}))
+        "fallback_device_ms": fb_ms, "insertion_device_ms": ins_ms,
+        "mapping_frames": info["map_frames"], "mapping_frame_ms": [float(x) for x in kf_ms],
+        "mapping_stage_ms": [float(x) for x in info["map_ms"]],
+        "other_frames_ms_median": float(np.median(rest))}}))
     missing = [k for k, v in launches.items() if v <= 0]
     if fs.n_captures != 1 or n_replays != len(frames) - 1:
         raise AssertionError(f"fused-orbit: {fs.n_captures} captures, {n_replays} replays "
@@ -843,7 +868,113 @@ def phase_fused_orbit(frames, poses_gt, calib, cfg, eager):
         raise AssertionError(f"fused-orbit: camera centres {d_centre:.6f} m from the eager run's")
     if missing:
         raise AssertionError(f"fused-orbit: never launched {missing}")
-    return launches
+    return launches, tr
+
+
+MAPPING_BUCKET_HINTS = {12: 11, 16: 15, 24: 23, 32: 31}   # window bucket -> covis_hint
+
+
+def body_split(step):
+    """The device ms and operations of each "mapping/<stage>" range of one
+    eager call of a `MappingStep`'s body under `torch.profiler` (its
+    launches are taken back: they are a measurement's, not a path's)."""
+    from multi_orb_slam_tpu_torch.ops import kernels
+
+    counts = dict(kernels.LAUNCHES)
+    rows = collections.defaultdict(
+        lambda: {"calls": 0, "host_ms": 0.0, "device_ops": 0, "device_ms": 0.0})
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        step.body()
+        torch.cuda.synchronize()
+    read_ranges(prof, "mapping/", rows)
+    kernels.LAUNCHES.update(counts)
+    return dict(rows)
+
+
+def phase_mapping_graph(tracker, calib, cfg):
+    """`mapping-graph`: the mapping stage of the fused-orbit run's last map
+    and newest keyframe, at the default `SlamConfig`, with each local-BA
+    window bucket forced through `covis_hint`: the eager body once, then
+    the `MappingStep`'s replay (captured on its first use, in the orbit
+    run or here) and a second replay, each under
+    `set_sync_debug_mode("error")` and each bit-equal to the eager body in
+    every field of the map.  Prints per bucket the capture's ms, a replay's
+    ms (CUDA events) against the eager body's (host clock), its device ms
+    and operations (`torch.profiler`), and the live and total LM trips.
+    Returns the launch counts of the replays."""
+    from multi_orb_slam_tpu_torch.frontend import tracking
+    from multi_orb_slam_tpu_torch.mapping import local_mapping, mapping_graph
+    from multi_orb_slam_tpu_torch.ops import kernels
+    from multi_orb_slam_tpu_torch.optim import local_ba
+    from multi_orb_slam_tpu_torch.utils import graphs
+
+    st = graphs.clone(tracker.map)
+    kf = int(tracking._newest_kf(st))
+    fid = int(tracker.frame_id)
+    print(f"mapping-graph: the fused-orbit map ({int(st.n_kf)} keyframes, {int(st.n_mp)} map "
+          f"points; capacities K {cfg.max_kf}, M {cfg.max_mp}, F {cfg.max_feat} x {cfg.n_cams} "
+          f"cameras, ba_local_cap {cfg.ba_local_cap}), keyframe slot {kf}, frame {fid}")
+    kernels.reset_launch_counts()
+    launches_replays = dict.fromkeys(kernels.LAUNCHES, 0)
+    rows, failures = [], []
+    for bucket, hint in MAPPING_BUCKET_HINTS.items():
+        window = local_mapping._window(st, kf, cfg, hint)
+        step = mapping_graph.step_for(calib.K.device, cfg, calib, *window)
+        captured_before = step.graph is not None
+        step.load(state=st, kf_slot=kf, frame_id=fid, calib=calib)
+        # the eager body (its launches are a comparison's, not the path's)
+        counts = dict(kernels.LAUNCHES)
+        graphs.clone(step.body())
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        eager = graphs.clone(step.body())
+        torch.cuda.synchronize()
+        eager_ms = (time.perf_counter() - t) * 1e3
+        kernels.LAUNCHES.update(counts)
+        ba0 = local_ba.STATS.read()
+        counts = dict(kernels.LAUNCHES)
+        outs = [step.run(), step.run()]
+        torch.cuda.synchronize()
+        for k, v in kernels.LAUNCHES.items():
+            launches_replays[k] += v - counts[k]
+        ba = {k: (v - ba0.get(k, 0)) // 2 for k, v in local_ba.STATS.read().items()}
+        equal = [all(torch.equal(a, b) for a, b in zip(graphs.tensors(o), graphs.tensors(eager)))
+                 for o in outs]
+        replay_ms = cuda_ms(step.graph.replay, reps=5, warmup=1)
+        dev_ms, dev_ops = profiled_device(step.graph.replay)
+        split = body_split(step)
+        live, trips = ba.get("iterations", 0), ba.get("trips", 0)
+        solve_ms = split.get("solve", {}).get("device_ms", 0.0)
+        dead_ms = solve_ms * (trips - live) / max(trips, 1)
+        row = {"bucket": bucket, "n_free": window[0], "phases": window[2],
+               "captured_in_orbit_run": captured_before, "warmup_ms": step.warmup_ms,
+               "capture_ms": step.capture_ms, "eager_ms": eager_ms, "replay_ms": replay_ms,
+               "replay_device_ms": dev_ms, "replay_device_ops": dev_ops,
+               "lm_live_trips": live, "lm_trips": trips, "dead_trips_device_ms": dead_ms,
+               "body_device_ms": {k: r["device_ms"] for k, r in split.items()},
+               "graph_kernels": step.graph_launches, "bit_equal": equal}
+        rows.append(row)
+        print(f"  bucket {bucket} (phases {window[2]}): capture {step.capture_ms:.1f} ms "
+              f"(warm-up {step.warmup_ms:.1f} ms{', in the orbit run' if captured_before else ''})"
+              f"; replay {replay_ms:.2f} ms (CUDA events) against the eager body's "
+              f"{eager_ms:.2f} ms; a replay {dev_ops} device operations, {dev_ms:.3f} ms of "
+              f"device time; LM trips live {live} of {trips}, the dead ones ~{dead_ms:.2f} ms "
+              f"of device time (the body's solve {solve_ms:.2f} ms over "
+              f"{trips} trips); kernels in the graph {step.graph_launches}; two replays "
+              f"bit-equal to the eager body {equal}")
+        print("    the eager body's device ms by stage: " + ", ".join(
+            f"{k} {r['device_ms']:.2f}" for k, r in split.items()))
+        if not all(equal):
+            failures.append(f"bucket {bucket}: replays bit-equal {equal}")
+        if step.graph_launches["point_sums"] != 1 or step.graph_launches["window_match"] < 1:
+            failures.append(f"bucket {bucket}: kernels in the graph {step.graph_launches}")
+    print(json.dumps({"mapping_graph": rows}))
+    print(f"  kernel launches of the replays: {launches_replays}")
+    if failures:
+        raise AssertionError("mapping-graph: " + "; ".join(failures))
+    return launches_replays
 
 
 def phase_scan(frames, poses_gt, calib, cfg):
@@ -1254,7 +1385,14 @@ def phase_system_loop(dev):
     for mod, name, fn in patched:
         setattr(mod, name, fn)
     roles0 = dict(loop_closing.STATS)
-    states, times = [], []
+    states, times, map_frames = [], [], []
+    on_keyframe = sys_.tracker.kf_inserted_cb
+
+    def kf_cb(kf_slot):
+        map_frames.append(len(times))
+        return on_keyframe(kf_slot)
+
+    sys_.tracker.kf_inserted_cb = kf_cb
     try:
         kernels.reset_launch_counts()
         for i, (g, d) in enumerate(frames):
@@ -1287,6 +1425,11 @@ def phase_system_loop(dev):
           f"{int(st.n_kf)}, map points {int(st.n_mp)}, loop candidates verified "
           f"{len(lc.verifications)}; track_rgbd median {np.median(ms_):.2f} ms/frame (max "
           f"{ms_.max():.2f}, total {ms_.sum() / 1e3:.2f} s)")
+    kf_ms = ms_[map_frames]
+    print(f"  frames that ran the keyframe stages (mapping graph, loop stage): "
+          f"{len(map_frames)}, median {np.median(kf_ms):.2f} ms, max {kf_ms.max():.2f} ms, "
+          f"{kf_ms.sum() / 1e3:.2f} s in all; the other frames median "
+          f"{np.median(np.delete(ms_, map_frames)):.2f} ms")
     for v in lc.verifications:
         print(f"  verification at keyframe frame {v['frame']}: kf_a {v['kf_a']} kf_b {v['kf_b']}, "
               f"BoW pairs {v['bow']}, RANSAC inliers {v['ransac']}, LM inliers {v['lm']}, total "
@@ -1610,11 +1753,11 @@ def phase_system_stereo(dev):
               f"written with io/png.py; settings of ORB-SLAM2's KITTI00-02.yaml")
         with open(settings, "w") as f:
             f.write(KITTI_YAML)
-        ba0 = local_ba.STATS["solves"]
+        ba0 = local_ba.STATS.read().get("solves", 0)
         kernels.reset_launch_counts()
         (rc, slam), text, secs = run_driver(stereo_kitti.run, [settings, root, "--out", out])
         launches = dict(kernels.LAUNCHES)
-        solves = local_ba.STATS["solves"] - ba0
+        solves = local_ba.STATS.read().get("solves", 0) - ba0
         frac, rel = stereo_frame_split(root, slam.calib, slam.cfg.orb, depth0)
         rows = [np.array([float(v) for v in line.split()]).reshape(3, 4)
                 for line in open(out).read().splitlines() if line.strip()]
@@ -2138,7 +2281,7 @@ def main():
     }
     kitti = phase_kitti_shapes(dev, rng)
     t = time.perf_counter()
-    tracking, mapped, system, firsts, fused, scan = phase_main_paths(dev)
+    tracking, mapped, system, firsts, fused, scan, graph = phase_main_paths(dev)
     t = elapsed("orbit paths and system-reloc", t)
     loop = phase_system_loop(dev)
     t = elapsed("system-loop", t)
@@ -2164,6 +2307,7 @@ def main():
                      "launches_stereo": stereo[name], "launches_driver": driver[name],
                      "launches_distributed": distributed[name],
                      "launches_fused": fused[name], "launches_scan": scan[name],
+                     "launches_mapping_graph": graph[name],
                      **res, **extra})
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

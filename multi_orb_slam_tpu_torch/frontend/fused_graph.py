@@ -28,7 +28,6 @@ graph of `tracking.scan_step`, back to back.
 
 from __future__ import annotations
 
-import contextlib
 import time
 
 import numpy as np
@@ -38,56 +37,12 @@ from ..config import SlamConfig
 from ..geometry import camera as cam_mod
 from ..mapping import map_state as ms
 from ..ops import kernels, search
+from ..utils import graphs
 from . import frame as frame_mod
 from . import tracking
 
 # the buffers `load` fills, in the body function's argument order
 INPUTS = ("state", "prev", "prev_Tcw", "prev_mp", "velocity", "tstate", "local_pts")
-
-
-def _tensors(x):
-    """The tensors of a tensor, a NamedTuple or a tuple, in order (fields
-    that are no tensor, such as None or an image size, skipped)."""
-    if isinstance(x, torch.Tensor):
-        return [x]
-    if isinstance(x, tuple):
-        return [t for f in x for t in _tensors(f)]
-    return []
-
-
-def _same(a: torch.Tensor, b: torch.Tensor) -> bool:
-    return a is b or (a.data_ptr() == b.data_ptr() and a.shape == b.shape
-                      and a.stride() == b.stride() and a.dtype == b.dtype)
-
-
-def _copy_into(buf, value) -> None:
-    """buf.copy_(value) field by field, skipping fields that are the buffer."""
-    for b, v in zip(_tensors(buf), _tensors(value), strict=True):
-        if not _same(b, v):
-            b.copy_(v)
-
-
-def _clone(x):
-    if x is None or isinstance(x, torch.Tensor):
-        return None if x is None else x.clone()
-    out = [_clone(f) for f in x]
-    return type(x)(*out) if hasattr(x, "_fields") else type(x)(out)
-
-
-@contextlib.contextmanager
-def no_host_sync(device: torch.device):
-    """On a CUDA device, `torch.cuda.set_sync_debug_mode("error")` for the
-    block (the mode it found is restored): an operation that makes the host
-    wait on the device raises."""
-    if device.type != "cuda":
-        yield
-        return
-    before = torch.cuda.get_sync_debug_mode()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        yield
-    finally:
-        torch.cuda.set_sync_debug_mode(before)
 
 
 class FusedStep:
@@ -139,7 +94,7 @@ class FusedStep:
         may be a tuple of three ints, filled in on the device; `frame_id` an
         int (filled in where it differs from the buffer's) or a tensor."""
         if calib is not None:
-            _copy_into(self.calib, calib)
+            graphs.copy_into(self.calib, calib)
         for name, value in fields.items():
             if name not in INPUTS:
                 raise TypeError(f"unknown input {name!r}")
@@ -155,9 +110,9 @@ class FusedStep:
             elif buf is None:
                 if self.graph is not None:
                     raise RuntimeError(f"{name}: no buffer in the captured step")
-                setattr(self, name, _clone(value))
+                setattr(self, name, graphs.clone(value))
             else:
-                _copy_into(buf, value)
+                graphs.copy_into(buf, value)
         if frame_id is not None:
             if isinstance(frame_id, torch.Tensor):
                 self.frame_id.copy_(frame_id)
@@ -205,7 +160,7 @@ class FusedStep:
         """The step, then its outputs copied into the input buffers."""
         carry, (self.scalars, self.ref_slot, self.ref_pose, self.ref_fid, _) = self._call()
         for name, value in zip(INPUTS + ("frame_id",), carry):
-            _copy_into(getattr(self, name), value)
+            graphs.copy_into(getattr(self, name), value)
 
     def _check_loaded(self):
         missing = [name for name in INPUTS if getattr(self, name) is None]
@@ -253,7 +208,7 @@ class FusedStep:
         else:
             if self.graph is None:
                 self.capture()
-            with no_host_sync(self.device):
+            with graphs.no_host_sync(self.device):
                 self.graph.replay()
             kernels.add_launches(self.graph_launches)
             self.n_replays += 1
@@ -285,13 +240,13 @@ def scan_chunk(state: ms.MapState, prev: frame_mod.FrameData, prev_Tcw, prev_mp,
     for g in range(G):
         fs.put_images(grays_G[g], depths_G[g])
         fs.run()
-        with no_host_sync(dev):
+        with graphs.no_host_sync(dev):
             row = (fs.scalars, fs.ref_slot, fs.ref_pose, fs.ref_fid, fs.prev_Tcw)
             if outs is None:
                 outs = tuple(torch.empty((G,) + t.shape, dtype=t.dtype, device=dev)
                              for t in row)
             for o, t in zip(outs, row):
                 o[g].copy_(t)
-    carry = tuple(_clone(getattr(fs, name)) for name in INPUTS)
+    carry = tuple(graphs.clone(getattr(fs, name)) for name in INPUTS)
     return carry + (outs,)
 

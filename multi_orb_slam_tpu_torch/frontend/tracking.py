@@ -37,6 +37,7 @@ from ..geometry import se3
 from ..mapping import map_state as ms
 from ..ops import hamming, search
 from ..optim import pose_opt
+from ..utils import graphs
 from . import frame as frame_mod
 
 
@@ -50,14 +51,6 @@ def _device_scalar(v, dtype: torch.dtype, device) -> torch.Tensor:
     if isinstance(v, torch.Tensor):
         return v.to(device, dtype)
     return torch.full((), v, dtype=dtype, device=device)
-
-
-def _filled(values, dtype: torch.dtype, device) -> torch.Tensor:
-    """A 1-D tensor of host values, each filled in on the device."""
-    out = torch.empty(len(values), dtype=dtype, device=device)
-    for i, v in enumerate(values):
-        out[i].fill_(v)
-    return out
 
 
 def _row(a: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -238,14 +231,27 @@ def insert_keyframe_impl(state: ms.MapState, fr: frame_mod.FrameData,
     return new_state, kf_mp_new
 
 
+# the fixed point of update_point_geometry's sums: 1.0, and the largest
+# magnitude a term keeps (2^20 m, so 2^52 a term; a point has at most one
+# observation a (keyframe, camera) row and K * C <= 2^9 rows, so a sum
+# stays under 2^61 and an int64 cannot overflow)
+_FIXED_ONE = float(2 ** 32)
+_FIXED_MAX = float(2 ** 20)
+
+
 def update_point_geometry(state: ms.MapState, cfg: SlamConfig) -> ms.MapState:
     """Recompute mean viewing normal and scale-invariance range per point
     (MapPoint::UpdateNormalAndDepth), over the whole map by scatter-adds.
 
     Normals are taken from the rig-body centre of each observing keyframe;
-    the depth range is the mean over observations.  The float sums run in
-    another order than the reference's (and, on CUDA, in an order that
-    varies between launches), so the outputs agree to ~1e-5, not to bits.
+    the depth range is the mean over observations.  The sums over a
+    point's observations are taken in 2^-32 fixed point (int64 scatter-adds,
+    each term rounded once): exact, so the same in every order, and the
+    outputs are the same bits on every launch, on the card as on the CPU
+    (a float scatter-add on the card sums in an order that varies between
+    launches, and a CUDA graph's replay could then not match its eager
+    body).  Against the reference's float32 sums the outputs agree to
+    ~1e-5.
     """
     K, C, F = state.kf_mp.shape
     M = state.mp_pos.shape[0]
@@ -264,8 +270,11 @@ def update_point_geometry(state: ms.MapState, cfg: SlamConfig) -> ms.MapState:
     # one scatter-add of [nx, ny, nz, 1, min_d, max_d] per observation
     vals = torch.cat([n, torch.ones_like(dist)[..., None], min_d[..., None],
                       max_d[..., None]], dim=-1) * w[..., None]
-    sums = torch.zeros((M, 6), dtype=f32, device=dev)
-    sums.index_add_(0, tgt.reshape(-1), vals.reshape(-1, 6))
+    fixed = torch.round(vals.reshape(-1, 6).to(torch.float64).clamp(-_FIXED_MAX, _FIXED_MAX)
+                        * _FIXED_ONE).to(torch.int64)
+    acc = torch.zeros((M, 6), dtype=torch.int64, device=dev)
+    acc.index_add_(0, tgt.reshape(-1), fixed)
+    sums = (acc.to(torch.float64) / _FIXED_ONE).to(f32)
     cnt = sums[:, 3]
     normal = sums[:, :3] / torch.clamp(cnt[:, None], min=1e-9)
     normal = normal / torch.clamp(torch.linalg.norm(normal, dim=-1, keepdim=True), min=1e-9)
@@ -765,7 +774,7 @@ class Tracker:
         fs.tstate[2].fill_(1 if self.only_tracking else 0)
         fs.put_images(grays, depths)
         fs.run()
-        with fused_graph.no_host_sync(self.device):
+        with graphs.no_host_sync(self.device):
             self.Tcw = fs.prev_Tcw.clone()
             self._record(fs.ref_slot.clone(), fs.ref_pose.clone(), fs.ref_fid.clone())
             self._push_pending(fs.scalars)
@@ -777,8 +786,8 @@ class Tracker:
 
     def _process_ok_fused(self, fr: frame_mod.FrameData):
         if self._tstate_dirty or self._tstate_dev is None:
-            self._tstate_dev = _filled([self.last_kf_frame, self.ref_kf_tracked, 0],
-                                       torch.int32, self.device)
+            self._tstate_dev = graphs.filled([self.last_kf_frame, self.ref_kf_tracked, 0],
+                                             torch.int32, self.device)
             self._tstate_dirty = False
         tstate = self._tstate_dev.clone()
         tstate[2].fill_(1 if self.only_tracking else 0)

@@ -12,9 +12,17 @@ deterministic stage invoked after keyframe insertion (the `Tracker`'s
 - `run_mapping_stage`, the whole pass; triangulation of new points and
   neighbour fusion live in `triangulation.py` / `fusion.py`.
 
-Host reads per keyframe: `run_mapping_stage` reads `n_kf` and `n_mp` in
-one transfer (the reference's two `lax.cond`s), and `solve_ba` reads one
-flag per LM iteration.  With `covis_hint` given, nothing else is read.
+With every stage on, `run_mapping_stage` is `_mapping_stage_fused`, the
+reference's one jitted program a keyframe: the host reads nothing.  Its two
+`lax.cond`s (local BA once the map holds more than 2 keyframes, capacity
+relief once the point store is over 90% full) compute both branches and
+select (`tracking.select`), and local BA's LM loop runs on the device
+(`optim/local_ba.py`).  On the card the stage is a CUDA graph, captured
+once per (configuration, window bucket) and replayed once a keyframe
+(`mapping_graph.MappingStep`); on the CPU the same object calls the body.
+Without `covis_hint` (and with `ba_adaptive`) the window's covisible count
+is read back first; a stage switched off takes the stepwise path, whose
+host `if`s read `n_kf`, as the reference's does.
 
 Repeated scatter indices only meet on a dump slot (K-1, M-1, or a column
 past the end), where every write carries the same value, so each
@@ -27,16 +35,19 @@ from __future__ import annotations
 import torch
 
 from ..config import SlamConfig, inv_sigma2_of_level
-from ..frontend.tracking import update_point_geometry
+from ..frontend.tracking import select, update_point_geometry
 from ..geometry import camera as cam_mod
 from ..ops import hamming
 from ..optim import local_ba
+from ..utils import graphs
 from . import fusion, triangulation
 from . import map_state as ms
 
-# plain counters over all mapping stages of this process (diagnostics):
-# stages run, and local-BA windows taken by their number of free keyframes
-STATS = {"stages": 0, "ba_windows": {}}
+# device counters over all mapping stages of this process (diagnostics):
+# stages run ("stages"), and local-BA windows taken, keyed by their number
+# of free keyframes
+STATS = graphs.DeviceCounters()
+BA_WINDOWS = graphs.DeviceCounters()
 
 
 def _stage(name: str):
@@ -71,7 +82,7 @@ def build_local_problem(state: ms.MapState, center_kf, cfg: SlamConfig,
     ck = ms.slot_index(center_kf, dev)
 
     share = _shared_obs(state, _row_mask(state, ck))
-    share[ck] = 1 << 24  # center always first
+    share.index_fill_(0, ck, 1 << 24)  # center always first
     w_free, free_kfs = hamming.top_k(share, n_free)
     free_ok = (w_free > 0) & state.kf_valid[free_kfs]
 
@@ -197,6 +208,20 @@ _BA_BUCKET_PHASES = {
 }
 
 
+def _window(state: ms.MapState, kf_slot, cfg: SlamConfig, covis_hint):
+    """(n_free, n_fixed, phases) of the local-BA window: with
+    `ba_adaptive`, the smallest bucket above the covisible count and its
+    LM schedule (the count is read back here when no hint is given)."""
+    if not cfg.ba_adaptive:
+        return cfg.ba_free_kfs, cfg.ba_fixed_kfs, ((5, True), (8, False))
+    n_cov = covis_hint if covis_hint is not None else int(covis_kf_count(state, kf_slot))
+    for nf in _BA_WINDOW_BUCKETS:
+        if nf >= n_cov + 1:
+            break
+    n = min(nf, cfg.max_kf // 2)
+    return n, n, _BA_BUCKET_PHASES[nf]
+
+
 def run_mapping_stage(state: ms.MapState, kf_slot, frame_id,
                       calib: cam_mod.CameraParams, cfg: SlamConfig,
                       do_triangulate: bool = True, do_fuse: bool = True,
@@ -206,29 +231,25 @@ def run_mapping_stage(state: ms.MapState, kf_slot, frame_id,
     -> new-point triangulation -> neighbour fusion -> local BA (once the
     map has more than 2 keyframes) -> keyframe culling -> point geometry.
 
-    With every stage on (the default), the pass also evicts the weakest
-    non-recent points when the point store is over 90% full; a pass with a
-    stage switched off does not (as in the reference).
+    With every stage on (the default), the pass is `_mapping_stage_fused`
+    on a `mapping_graph.MappingStep` (a CUDA graph replay on the card) and
+    also evicts the weakest non-recent points when the point store is over
+    90% full; the map it returns is the caller's own (a copy of the step's
+    outputs).  A pass with a stage switched off runs stage by stage and
+    does not relieve capacity (as in the reference).
 
     `covis_hint`: a caller-provided covisible-keyframe count for adaptive
     window sizing.  Pass the PREVIOUS keyframe's count (`covis_kf_count`,
     read one keyframe later); with `ba_adaptive` and no hint, the count is
     computed here and read back at once.
     """
-    n_free, n_fixed = cfg.ba_free_kfs, cfg.ba_fixed_kfs
-    phases = ((5, True), (8, False))
-    if cfg.ba_adaptive:
-        n_cov = covis_hint if covis_hint is not None else int(
-            covis_kf_count(state, kf_slot))
-        for nf in _BA_WINDOW_BUCKETS:
-            if nf >= n_cov + 1:
-                break
-        phases = _BA_BUCKET_PHASES[nf]
-        n_free = n_fixed = min(nf, cfg.max_kf // 2)
-    all_stages = do_triangulate and do_fuse and do_ba and do_cull
-    M = state.mp_pos.shape[0]
-    STATS["stages"] += 1
+    n_free, n_fixed, phases = _window(state, kf_slot, cfg, covis_hint)
+    if do_triangulate and do_fuse and do_ba and do_cull:
+        from . import mapping_graph  # it imports this module
 
+        return mapping_graph.run_stage(state, kf_slot, frame_id, calib, cfg,
+                                       n_free, n_fixed, phases)
+    STATS.add("stages", 1, state.mp_pos.device)
     if do_cull:
         with _stage("cull_points"):
             state = cull_map_points(state, frame_id, cfg)
@@ -238,20 +259,47 @@ def run_mapping_stage(state: ms.MapState, kf_slot, frame_id,
     if do_fuse:
         with _stage("fuse"):
             state, _ = fusion.fuse_neighbors(state, kf_slot, calib, cfg)
-    if do_ba:
-        # neither local BA nor keyframe culling changes n_mp, so both of
-        # this pass's host decisions are read here, in one transfer
-        n_kf, n_mp = torch.stack([state.n_kf, state.n_mp]).tolist()
-        if n_kf > 2:
-            STATS["ba_windows"][n_free] = STATS["ba_windows"].get(n_free, 0) + 1
-            state = run_local_ba(state, kf_slot, calib, cfg,
-                                 n_free=n_free, n_fixed=n_fixed, phases=phases)
+    if do_ba and int(state.n_kf) > 2:
+        BA_WINDOWS.add(n_free, 1, state.mp_pos.device)
+        state = run_local_ba(state, kf_slot, calib, cfg,
+                             n_free=n_free, n_fixed=n_fixed, phases=phases)
     if do_cull:
         with _stage("cull_keyframes"):
             state = cull_keyframes(state, kf_slot, cfg)
-    if all_stages and n_mp > int(0.90 * M):
-        with _stage("relieve_capacity"):
-            state = ms.relieve_capacity(state, target_free=max(M // 10, 64))
+    with _stage("geometry"):
+        return update_point_geometry(state, cfg)
+
+
+def _mapping_stage_fused(state: ms.MapState, kf_slot: torch.Tensor, frame_id: torch.Tensor,
+                         calib: cam_mod.CameraParams, cfg: SlamConfig, n_free: int,
+                         n_fixed: int, phases: tuple) -> ms.MapState:
+    """The mapping pass with every stage on, reading nothing back:
+    `kf_slot` and `frame_id` are 0-dim device tensors, the window and its
+    schedule static.  Local BA (skipped in the reference until the map
+    holds more than 2 keyframes) and capacity relief (over 90% of the
+    point store in use) are computed on every keyframe and selected."""
+    M = state.mp_pos.shape[0]
+    STATS.add("stages", 1, state.mp_pos.device)
+    with _stage("cull_points"):
+        state = cull_map_points(state, frame_id, cfg)
+    with _stage("triangulate"):
+        state, _ = triangulation.triangulate_new_points(state, kf_slot, calib, cfg)
+    with _stage("fuse"):
+        state, _ = fusion.fuse_neighbors(state, kf_slot, calib, cfg)
+    do_ba = state.n_kf > 2
+    BA_WINDOWS.add(n_free, do_ba)
+    with _stage("build_problem"):
+        prob = build_local_problem(state, kf_slot, cfg, n_free, n_fixed)
+    with _stage("solve"):
+        sol = local_ba.solve_ba(prob, calib.T_rc, calib.K, calib.bf, phases=phases, run=do_ba)
+    with _stage("apply"):
+        state = select(do_ba, apply_ba_result(state, prob, *sol, cfg), state)
+    with _stage("cull_keyframes"):
+        state = cull_keyframes(state, kf_slot, cfg)
+    with _stage("relieve_capacity"):
+        # neither local BA nor keyframe culling changes n_mp
+        state = select(state.n_mp > int(0.90 * M),
+                       ms.relieve_capacity(state, target_free=max(M // 10, 64)), state)
     with _stage("geometry"):
         return update_point_geometry(state, cfg)
 
@@ -260,7 +308,7 @@ def covis_kf_count(state: ms.MapState, kf_slot) -> torch.Tensor:
     """Number of valid keyframes sharing >= 15 observations with kf_slot."""
     ks = ms.slot_index(kf_slot, state.mp_pos.device)
     share = _shared_obs(state, _row_mask(state, ks))
-    share[ks] = 0
+    share.index_fill_(0, ks, 0)
     return (share >= 15).sum(dtype=torch.int32)
 
 

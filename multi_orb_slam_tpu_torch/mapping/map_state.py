@@ -115,8 +115,12 @@ def slot_index(k, device) -> torch.Tensor:
     """A keyframe slot (Python int, 0-dim or 1-element tensor) as a
     1-element int64 index tensor: rows are read with `index_select` and
     written with `x[idx] = ...`, so a slot that lives on the device is
-    never read back to the host."""
-    return torch.as_tensor(k, device=device).reshape(1).long()
+    never read back to the host, and an int is filled in on the device
+    (no copy from the host).  Inside the mapping stage the slot is always
+    a device tensor."""
+    if isinstance(k, torch.Tensor):
+        return k.to(device).reshape(1).long()
+    return torch.full((1,), int(k), dtype=torch.int64, device=device)
 
 
 def scatter_set_last(dst: torch.Tensor, idx: torch.Tensor, val: torch.Tensor) -> torch.Tensor:
@@ -288,7 +292,7 @@ def relieve_capacity(state: MapState, target_free: int) -> MapState:
     rank_ok = torch.arange(order.shape[0], device=dev) < n_needed
     hit = rank_ok & evictable[order]
     kill = scatter_max_bool(M, torch.where(hit, order, torch.full_like(order, M - 1)), hit)
-    kill[M - 1] = False
+    kill[M - 1].fill_(False)   # a fill: no copy from the host
     mp_valid = state.mp_valid & ~kill
     killed_of = kill[state.kf_mp.clamp(0, M - 1).long()] & (state.kf_mp >= 0)
     kf_mp = torch.where(killed_of, torch.full_like(state.kf_mp, -1), state.kf_mp)

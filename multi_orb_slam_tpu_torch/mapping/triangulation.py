@@ -187,9 +187,13 @@ def triangulate_pair(state: ms.MapState, kf_a, kf_b, cfg: SlamConfig,
         distn, lvl_a.reshape(-1), cfg.scale_factor, cfg.n_levels)
 
     def put_at(dst, val):
-        """dst.at[tgt].set(where(put, val, dst[tgt]))"""
+        """dst.at[tgt].set(where(put, val, dst[tgt])); a Python `val` is
+        filled in on the device"""
         old = dst[tgt]
-        val = torch.as_tensor(val, dtype=dst.dtype, device=dev).expand_as(old)
+        if isinstance(val, torch.Tensor):
+            val = val.to(dst.dtype).expand_as(old)
+        else:
+            val = torch.full_like(old, val)
         out = dst.clone()
         out[tgt] = torch.where(put.reshape((-1,) + (1,) * (old.dim() - 1)), val, old)
         return out

@@ -18,17 +18,31 @@ The one-time re-layout of the observations from feature-indexed [L, C, F]
 to point-indexed [L, C, P] rows runs through the `point_sums` kernel
 (`ops/kernels.py`): rows r = L*C, values V = [u, v, ur, inv_sigma2].
 
-Control flow.  The reference's `lax.while_loop` (early exit on stagnation,
-jump from a stagnated phase to the next phase boundary) is a Python
-`while` here: the iteration counter and the stagnation counter live on the
-host, and each iteration reads ONE boolean (`no_prog`) from the device.
-Accept/reject merges stay `torch.where` on the device.  The dense solve
-is `torch.linalg.solve_ex` (no error check, so no second sync; a singular
-system gives a non-finite step, which the cost test rejects).
+Control flow: the reference's one `lax.while_loop`, on the device.  The
+schedule runs a fixed `n_total` trips (the sum of the phases' iterations:
+each live trip advances the iteration `it` by at least 1, so no schedule
+needs more).  `it`, the stagnation count `conv` and the damping `lam` are
+device tensors; a trip is live while `it < n_total` and the final phase
+has not stagnated (`conv < 2` or `it` before the last phase's start), as
+the reference's loop condition reads.  A dead trip computes and merges
+nothing (`torch.where` on `live`), so the result is the reference's at any
+trip count.  The Huber flag, the phase-boundary re-gate and the jump to
+the next boundary after an earlier phase stagnates are read from device
+tables of the schedule; the re-gate and its cost re-evaluation (a
+`lax.cond` in the reference) are computed on every trip that can still
+reach a phase boundary, and selected.
+The host reads nothing, so the solve can be captured into a CUDA graph
+(`mapping/mapping_graph.py`).  The dense solve is
+`torch.linalg.solve_ex` (no error check, so no sync; a singular system
+gives a non-finite step, which the cost test rejects).
+
+`STATS` counts on the device: `solves` (solves run), `iterations` (live
+trips) and `trips` (trips computed, live or dead, over every call).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -36,11 +50,12 @@ import torch
 
 from ..geometry import se3
 from ..ops import kernels
+from ..utils import graphs
 from . import residuals
 from .pose_opt import CHI2_MONO, CHI2_STEREO
 
-# plain counters over all solves of this process (read by diagnostics)
-STATS = {"solves": 0, "iterations": 0}
+# device counters over all solves of this process (read by diagnostics)
+STATS = graphs.DeviceCounters()
 
 
 class BAProblem(NamedTuple):
@@ -86,7 +101,8 @@ def relayout_observations(prob: BAProblem):
         V.reshape(L * C, F, 4).contiguous(), inv.reshape(L * C, P))
     gathered = gathered.reshape(L, C, P, 4)
     obs_valid = inv >= 0
-    mono = torch.tensor([0.0, 0.0, -1.0], dtype=dtype, device=dev)
+    mono = torch.zeros(3, dtype=dtype, device=dev)
+    mono[2].fill_(-1.0)
     uvr_g = torch.where(obs_valid[..., None], gathered[..., :3], mono)
     return inv, obs_ok_f, uvr_g, gathered[..., 3]
 
@@ -123,11 +139,15 @@ def solve_ba(
     phases: tuple = ((5, True), (10, False)),
     chi2_gate_between: bool = True,
     early_exit_rtol: float = 1e-3,
+    run: torch.Tensor | None = None,
 ):
     """Run the phased LM schedule. Returns (kf_Tcw, mp_pos, obs_inlier).
 
     obs_inlier [L, C, F]: observations that survived the chi2 gates; the
-    caller erases the rest from the map.
+    caller erases the rest from the map.  `run`, a device bool (default
+    true): where false, no trip is live (the result is the start, gated)
+    and the solve is not counted; the mapping stage computes its local BA
+    on every keyframe and selects it.
     """
     L, C, F = prob.obs_mp.shape
     P = prob.mp_pos.shape[0]
@@ -154,32 +174,33 @@ def solve_ba(
         row = residuals.row_weights(is_st, dtype)
         return torch.sum(e * e * row, dim=-1) * obs_is2
 
-    def cost_eval(kf_Tcw, mp_pos, active, use_huber: bool):
+    def huber_on(chi2, is_st, use_huber):
+        """(r, delta, robust): the Huber kernel applies where `robust`; the
+        flag `use_huber` is a device bool, so a plain phase keeps chi2 and
+        a weight of exactly 1.0 (the same bits as no kernel at all)."""
+        delta = torch.where(is_st, delta_s, delta_m)
+        r = torch.sqrt(torch.clamp(chi2, min=1e-12))
+        return r, delta, use_huber & (r > delta)
+
+    def cost_eval(kf_Tcw, mp_pos, active, use_huber):
         """Residual-only robust cost + (chi2, posd): the trial-acceptance
         check, no Jacobians."""
         e, _, _, is_st, posd = residual_state(kf_Tcw, mp_pos, want_jac=False)
         act = active & obs_valid & posd
         chi2 = chi2_of(e, is_st)
-        if use_huber:
-            delta = torch.where(is_st, delta_s, delta_m)
-            r = torch.sqrt(torch.clamp(chi2, min=1e-12))
-            rho_c = torch.where(r > delta, delta * (2.0 * r - delta), chi2)
-        else:
-            rho_c = chi2
+        r, delta, robust = huber_on(chi2, is_st, use_huber)
+        rho_c = torch.where(robust, delta * (2.0 * r - delta), chi2)
         total = torch.sum(torch.where(act, rho_c, torch.zeros_like(rho_c)))
         return total, chi2, posd
 
-    def linearize(kf_Tcw, mp_pos, active, use_huber: bool):
+    def linearize(kf_Tcw, mp_pos, active, use_huber):
         """One residual pass -> undamped normal-equation blocks."""
         e, Jc, Jp, is_st, posd = residual_state(kf_Tcw, mp_pos)
         act = active & obs_valid & posd
         row = residuals.row_weights(is_st, dtype)           # [L, C, P, 3]
         w = obs_is2 * act.to(dtype)
-        if use_huber:
-            chi2 = chi2_of(e, is_st)
-            delta = torch.where(is_st, delta_s, delta_m)
-            r = torch.sqrt(torch.clamp(chi2, min=1e-12))
-            w = w * torch.where(r > delta, delta / r, torch.ones_like(r))
+        r, delta, robust = huber_on(chi2_of(e, is_st), is_st, use_huber)
+        w = w * torch.where(robust, delta / r, torch.ones_like(r))
         Wr = row * w[..., None]                             # [L, C, P, 3]
 
         Jc_eff = Jc * kf_free_f
@@ -265,66 +286,87 @@ def solve_ba(
     # stereo flag / chi2 threshold per observation is state-independent
     th_const = torch.where(uvr_g[..., 2] >= 0, CHI2_STEREO, CHI2_MONO)
 
-    # schedule as host data: per-iteration Huber flag, gate-before-iteration
-    # flag and the next phase boundary
-    iters_list = [int(p[0]) for p in phases]
-    n_total = int(sum(iters_list))
-    starts = np.cumsum([0] + iters_list[:-1])
-    huber_np = np.zeros(max(n_total, 1), bool)
-    gate_np = np.zeros(max(n_total, 1), bool)
-    next_b_np = np.zeros(max(n_total, 1), np.int32)
-    for ph, (it0, nit) in enumerate(zip(starts, iters_list)):
-        huber_np[it0:it0 + nit] = bool(phases[ph][1])
-        next_b_np[it0:it0 + nit] = it0 + nit
-        if ph > 0 and chi2_gate_between:
-            gate_np[it0] = True
-    last_start = int(starts[-1]) if len(starts) else 0
+    huber_t, gate_t, next_b_t, n_total, last_start = _schedule(
+        tuple((int(n), bool(h)) for n, h in phases), bool(chi2_gate_between), dev)
+    i64 = torch.int64
 
     kf_cur, mp_cur = prob.kf_Tcw, prob.mp_pos
     active = obs_valid
-    cost, chi2c, posdc = cost_eval(kf_cur, mp_cur, active, bool(huber_np[0]))
-    lam = torch.tensor(1e-4, dtype=dtype, device=dev)
-    lam_reset = lam.clone()
-    it, conv, n_done = 0, 0, 0
-    # stagnation in the FINAL phase ends the schedule; in an earlier phase
-    # the loop jumps to the next phase boundary (below)
-    while it < n_total and (conv < 2 or it < last_start):
-        use_huber = bool(huber_np[it])
-        if gate_np[it]:
+    cost, chi2c, posdc = cost_eval(kf_cur, mp_cur, active, huber_t[0])
+    lam_reset = torch.full((), 1e-4, dtype=dtype, device=dev)
+    lam = lam_reset
+    it = torch.zeros((), dtype=i64, device=dev)
+    conv = torch.zeros((), dtype=i64, device=dev)
+    run = torch.ones((), dtype=torch.bool, device=dev) if run is None else run
+    n_live = torch.zeros((), dtype=i64, device=dev)
+    # a live trip t has it >= t, so trips past the last gated iteration
+    # cannot re-gate: the re-gate is computed on trips up to it only
+    last_gate = last_start if chi2_gate_between and len(phases) > 1 else -1
+    for trip in range(n_total):
+        # the reference's loop condition: stagnation in the FINAL phase
+        # ends the schedule (the jump out of an earlier phase is below)
+        live = run & (it < n_total) & ((conv < 2) | (it < last_start))
+        at = it.clamp(max=max(n_total - 1, 0)).reshape(1)
+        use_huber = huber_t.index_select(0, at)[0]
+        if trip <= last_gate:
             # phase boundary: re-gate actives from the carried chi2; LM
             # restarts its damping and the stagnation counter, and the
             # carried cost is re-evaluated under the new (mask, kernel)
-            active = obs_valid & (chi2c <= th_const) & posdc
-            lam = lam_reset
-            conv = 0
-            cost = cost_eval(kf_cur, mp_cur, active, use_huber)[0]
+            regate = live & gate_t.index_select(0, at)[0]
+            active = torch.where(regate, obs_valid & (chi2c <= th_const) & posdc, active)
+            lam = torch.where(regate, lam_reset, lam)
+            conv = torch.where(regate, 0, conv)
+            cost = torch.where(regate, cost_eval(kf_cur, mp_cur, active, use_huber)[0], cost)
 
         dxc, dp = solve_step(linearize(kf_cur, mp_cur, active, use_huber), lam)
         kf_new = se3.exp(dxc) @ kf_cur
         mp_new = mp_cur + dp
         cost_t, chi2_t, posd_t = cost_eval(kf_new, mp_new, active, use_huber)
-        accept = cost_t < cost
+        accept = live & (cost_t < cost)
         rel_dec = (cost - cost_t) / torch.clamp(cost, min=1e-12)
         kf_cur = torch.where(accept, kf_new, kf_cur)
         mp_cur = torch.where(accept, mp_new, mp_cur)
         cost = torch.where(accept, cost_t, cost)
         chi2c = torch.where(accept, chi2_t, chi2c)
         posdc = torch.where(accept, posd_t, posdc)
-        lam = torch.clamp(torch.where(accept, lam * 0.5, lam * 5.0), 1e-9, 1e8)
+        lam_t = torch.clamp(torch.where(accept, lam * 0.5, lam * 5.0), 1e-9, 1e8)
         # two consecutive no-progress iterations end the phase; a REJECTED
         # step only counts once lambda has grown large
-        no_prog = torch.where(accept, rel_dec < early_exit_rtol, lam >= 1e2)
-        conv_t = conv + 1 if bool(no_prog) else 0    # the one host read
-        n_done += 1
-        if conv_t >= 2 and it < last_start:
-            it, conv = int(next_b_np[it]), 0
-        else:
-            it, conv = it + 1, conv_t
-    STATS["solves"] += 1
-    STATS["iterations"] += n_done
+        no_prog = torch.where(accept, rel_dec < early_exit_rtol, lam_t >= 1e2)
+        conv_t = torch.where(no_prog, conv + 1, 0)
+        jump = (conv_t >= 2) & (it < last_start)
+        it = torch.where(live, torch.where(jump, next_b_t.index_select(0, at)[0], it + 1), it)
+        conv = torch.where(live, torch.where(jump, 0, conv_t), conv)
+        lam = torch.where(live, lam_t, lam)
+        n_live = n_live + live.to(i64)
+    STATS.add("solves", run)
+    STATS.add("iterations", n_live)
+    STATS.add("trips", n_total, dev)
 
     # final inlier gate from the carried chi2 of the last ACCEPTED state,
     # mapped back to the caller's feature-indexed [L, C, F] layout
     active = obs_valid & (chi2c <= th_const) & posdc
     act_f = torch.gather(active, 2, prob.obs_mp.clamp(0, P - 1).long()) & obs_ok_f
     return kf_cur, mp_cur, act_f
+
+
+@functools.lru_cache(maxsize=None)
+def _schedule(phases: tuple, chi2_gate_between: bool, device: torch.device):
+    """The LM schedule as device tables, built once per (phases, device)
+    with fills: per iteration the Huber flag, the gate-before-iteration
+    flag and the next phase boundary; with `n_total` and the last phase's
+    first iteration (host ints, static per schedule)."""
+    iters_list = [n for n, _ in phases]
+    n_total = int(sum(iters_list))
+    starts = np.cumsum([0] + iters_list[:-1])
+    n = max(n_total, 1)
+    huber, gate, next_b = [False] * n, [False] * n, [0] * n
+    for ph, (it0, nit) in enumerate(zip(starts, iters_list)):
+        for i in range(int(it0), int(it0) + nit):
+            huber[i] = phases[ph][1]
+            next_b[i] = int(it0) + nit
+        if ph > 0 and chi2_gate_between:
+            gate[int(it0)] = True
+    last_start = int(starts[-1]) if len(starts) else 0
+    return (graphs.filled(huber, torch.bool, device), graphs.filled(gate, torch.bool, device),
+            graphs.filled(next_b, torch.int64, device), n_total, last_start)

@@ -429,6 +429,60 @@ def test_cuda_mapping_stage_runs_on_the_card():
 
 
 @pytest.mark.cuda
+def test_cuda_mapping_step_replays_equal_the_body():
+    """The small scene tracked on the card with the mapping stage; the maps
+    that went into its last two stages (both with local BA) go, one after
+    the other, through a fresh `MappingStep` (captured before the first):
+    each replay (and its copy out, under `set_sync_debug_mode("error")`)
+    is the same bits as the body called eagerly on the same buffers, and
+    each replay adds the launches of its capture (one `point_sums`, the
+    fusion's `window_match`) to the counts, and nothing more."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from multi_orb_slam_tpu_torch.frontend import tracking
+    from multi_orb_slam_tpu_torch.mapping import local_mapping, mapping_graph
+    from multi_orb_slam_tpu_torch.utils import graphs
+
+    cfg, calib, seq = _small_scene()
+    tracker = tracking.Tracker(calib, cfg, device="cuda")
+    snaps = []
+
+    def cb(k):
+        snaps.append((graphs.clone(tracker.map), k, tracker.frame_id))
+        return local_mapping.run_mapping_stage(tracker.map, k, tracker.frame_id,
+                                               tracker.calib, cfg)
+
+    tracker.kf_inserted_cb = cb
+    for g, d in zip(seq.grays, seq.depths):
+        tracker.process(g, d)
+    snaps = [x for x in snaps if int(x[0].n_kf) > 2][-2:]
+    assert len(snaps) == 2
+    step = mapping_graph.MappingStep(tracker.calib, cfg, "cuda", 12, 12, ((5, True), (8, False)))
+    kernels.reset_launch_counts()
+    for i, (st, k, fid) in enumerate(snaps):
+        step.load(state=st, kf_slot=k, frame_id=fid)
+        counts = dict(kernels.LAUNCHES)
+        eager = graphs.clone(step.body())
+        kernels.LAUNCHES.update(counts)
+        if step.graph is None:
+            step.capture()     # the host waits here, once
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = step.run()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        for name in st._fields:
+            assert torch.equal(getattr(out, name), getattr(eager, name)), (i, name)
+        assert int(out.n_kf) >= 3
+    assert step.n_captures == 1 and step.n_replays == 2
+    assert step.graph_launches["point_sums"] == 1 and step.graph_launches["window_match"] >= 1
+    assert kernels.LAUNCHES == {k: 2 * v for k, v in step.graph_launches.items()}
+    print(f"mapping graph: 2 replays the eager bits, kernels in the graph "
+          f"{step.graph_launches}, warm-up {step.warmup_ms:.1f} ms, capture "
+          f"{step.capture_ms:.1f} ms")
+
+
+@pytest.mark.cuda
 def test_cuda_relocalization_matches_cpu():
     """A `System` tracks 12 frames of a dual 320x240 rig on the CPU (mapping
     and the loop stage on, a small online vocabulary).  Its map, vocabulary
@@ -808,6 +862,7 @@ def test_cuda_fused_graph_replays_equal_eager_calls():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from multi_orb_slam_tpu_torch.frontend import fused_graph, tracking
+    from multi_orb_slam_tpu_torch.utils import graphs
 
     cfg, tr, seq = _fused_tracker("cuda")
     lp = tr._ensure_local_pts()
@@ -833,7 +888,7 @@ def test_cuda_fused_graph_replays_equal_eager_calls():
                  (fs.scalars, out[6]), (fs.ref_slot, out[7]), (fs.ref_pose, out[8]),
                  (fs.ref_fid, out[9])]
         for k, (a, b) in enumerate(pairs):
-            for x, y in zip(fused_graph._tensors(a), fused_graph._tensors(b)):
+            for x, y in zip(graphs.tensors(a), graphs.tensors(b)):
                 assert torch.equal(x, y), (i, k)
         assert int(fs.frame_id) == i + 1
         inserted += int(out[6][2])

@@ -53,6 +53,7 @@ from multi_orb_slam_tpu_torch.mapping import map_state as t_ms
 from multi_orb_slam_tpu_torch.mapping import triangulation as t_tri
 from multi_orb_slam_tpu_torch.ops import orb as t_orb
 from multi_orb_slam_tpu_torch.optim import local_ba as t_ba
+from test_torch_fused import _NoHostRead, _raiser
 
 torch.set_num_threads(2)
 C, H, W, NF, N_FRAMES = 2, 240, 320, 512, 14
@@ -120,9 +121,10 @@ def ref_run():
     traj = tracker.absolute_trajectory()
     assert all(not lost for *_, lost in traj)
     snap = [s for s in snaps if int(s["state"].n_kf) > 2][-1]
+    early = [s for s in snaps if int(s["state"].n_kf) <= 2][0]
     tcfg = TCfg(**CFG_KW, orb=t_orb.ORBConfig(n_features=NF))
     return dict(jcal=jcal, jcfg=jcfg, tcfg=tcfg, tcal=convert.to_torch(jcal, t_cam.CameraParams, "cpu"),
-                seq=seq, snap=snap, n_kf=int(tracker.map.n_kf), n_mapped=len(snaps),
+                seq=seq, snap=snap, early=early, n_kf=int(tracker.map.n_kf), n_mapped=len(snaps),
                 centers=_centers([T for _, _, T, _ in traj]))
 
 
@@ -320,15 +322,105 @@ def test_run_mapping_stage(ref_run, stages):
     s = ref_run["snap"]
     out_j = j_lm.run_mapping_stage(s["state"], s["kf"], s["fid"], ref_run["jcal"],
                                    ref_run["jcfg"], covis_hint=s["hint"])
-    before = dict(t_lm.STATS["ba_windows"])
+    before = t_lm.BA_WINDOWS.read()
     out_t = t_lm.run_mapping_stage(_tstate(s["state"]), s["kf"], s["fid"], ref_run["tcal"],
                                    ref_run["tcfg"], covis_hint=s["hint"])
-    assert sum(t_lm.STATS["ba_windows"].values()) == sum(before.values()) + 1
+    assert sum(t_lm.BA_WINDOWS.read().values()) == sum(before.values()) + 1
+    _hold_stage(out_j, out_t)
+
+
+def _hold_stage(out_j, out_t):
+    """The slice's tolerances (`test_run_mapping_stage`)."""
     _assert_same(out_j, out_t, only=("kf_valid", "n_kf", "mp_replaced"))
     assert abs(int(out_t.n_mp) - int(out_j.n_mp)) <= 0.01 * int(out_j.n_mp)
     np.testing.assert_allclose(out_t.kf_Tcw.numpy(), np.asarray(out_j.kf_Tcw), atol=1e-3)
     assert (out_t.kf_mp.numpy() == np.asarray(out_j.kf_mp)).mean() >= 0.995
     assert torch.isfinite(out_t.mp_pos).all() and torch.isfinite(out_t.kf_Tcw).all()
+
+
+def _counts():
+    return t_lm.STATS.read(), t_lm.BA_WINDOWS.read(), t_ba.STATS.read()
+
+
+def _delta(after, before):
+    return [{k: v - b.get(k, 0) for k, v in a.items() if v != b.get(k, 0)}
+            for a, b in zip(after, before)]
+
+
+def test_run_mapping_stage_skips_ba_on_two_keyframes(ref_run):
+    """The stage's first branch on the first keyframe mapped (n_kf = 2):
+    local BA is computed and not taken, as the reference skips it; the
+    stage counts, no window and no solve do, and the solve's trips are
+    all dead."""
+    s = ref_run["early"]
+    assert int(s["state"].n_kf) == 2
+    out_j = j_lm.run_mapping_stage(s["state"], s["kf"], s["fid"], ref_run["jcal"],
+                                   ref_run["jcfg"], covis_hint=s["hint"])
+    before = _counts()
+    out_t = t_lm.run_mapping_stage(_tstate(s["state"]), s["kf"], s["fid"], ref_run["tcal"],
+                                   ref_run["tcfg"], covis_hint=s["hint"])
+    stages, windows, ba = _delta(_counts(), before)
+    assert stages == {"stages": 1} and windows == {}
+    assert set(ba) == {"trips"}, ba
+    _hold_stage(out_j, out_t)
+    # without local BA no keyframe pose moves but by the culling stages
+    kf = np.asarray(out_j.kf_valid)
+    np.testing.assert_array_equal(out_t.kf_Tcw.numpy()[kf], np.asarray(s["state"].kf_Tcw)[kf])
+
+
+def _over_ninety_percent(state):
+    """`state` with filler points (valid, long tracked, observed by no
+    keyframe) in the lowest free slots until the store is over 90% full:
+    numpy fields for both packages."""
+    f = {k: np.asarray(v).copy() for k, v in state._asdict().items()}
+    M = f["mp_valid"].shape[0]
+    n_fill = int(0.90 * M) + 100 - int(f["n_mp"])
+    free = np.nonzero(~f["mp_valid"][:M - 1])[0][:n_fill]
+    f["mp_valid"][free] = True
+    f["mp_visible"][free] = 40
+    f["mp_found"][free] = 10 + free % 30
+    f["mp_first_frame"][free] = -1
+    f["n_mp"] = np.asarray(int(f["n_mp"]) + n_fill, np.int32)
+    return f
+
+
+def test_run_mapping_stage_relieves_capacity(ref_run):
+    """The stage's second branch: a point store over 90% full is relieved
+    to >= M / 10 free slots by evicting the weakest unprotected points, as
+    the reference does on the same snapshot."""
+    s = ref_run["snap"]
+    f = _over_ninety_percent(s["state"])
+    js = type(s["state"])(**{k: jnp.asarray(v) for k, v in f.items()})
+    M = f["mp_valid"].shape[0]
+    assert int(js.n_mp) > int(0.90 * M)
+    out_j = j_lm.run_mapping_stage(js, s["kf"], s["fid"], ref_run["jcal"], ref_run["jcfg"],
+                                   covis_hint=s["hint"])
+    out_t = t_lm.run_mapping_stage(_tstate(js), s["kf"], s["fid"], ref_run["tcal"],
+                                   ref_run["tcfg"], covis_hint=s["hint"])
+    assert M - int(out_j.n_mp) >= M // 10
+    assert M - int(out_t.n_mp) >= M // 10
+    _hold_stage(out_j, out_t)
+    assert (out_t.mp_valid.numpy() == np.asarray(out_j.mp_valid)).mean() >= 0.995
+
+
+def test_run_mapping_stage_reads_nothing_back(ref_run, monkeypatch):
+    """Every stage on, the window hint given: no host read and no tensor
+    made from host data (the checks of `test_torch_fused.py`) in
+    `run_mapping_stage`, buffers, loads and copies included, and the same
+    bits as the call before the check."""
+    s = ref_run["snap"]
+    state = _tstate(s["state"])
+    args = (state, s["kf"], s["fid"], ref_run["tcal"], ref_run["tcfg"])
+    expect = t_lm.run_mapping_stage(*args, covis_hint=s["hint"])   # makes the step
+    for name in ("tolist", "item", "__bool__", "__int__", "__float__", "__index__"):
+        monkeypatch.setattr(torch.Tensor, name, _raiser(f"Tensor.{name}"))
+    for name in ("tensor", "as_tensor", "from_numpy"):
+        monkeypatch.setattr(torch, name, _raiser(f"torch.{name}"))
+    with _NoHostRead():
+        out = t_lm.run_mapping_stage(*args, covis_hint=s["hint"])
+    monkeypatch.undo()
+    for name in t_ms.MapState._fields:
+        assert torch.equal(getattr(out, name), getattr(expect, name)), name
 
 
 @pytest.mark.parametrize("off", ["do_triangulate", "do_fuse", "do_ba", "do_cull"])
@@ -363,4 +455,4 @@ def test_tracker_with_mapping_end_to_end(ref_run, pipelined, limit_m):
     gt = _centers(seq.poses_gt)
     assert float(t_align.ate_rmse(torch.from_numpy(centers), torch.from_numpy(gt))) < 0.05
     assert torch.isfinite(tracker.map.mp_pos).all()
-    assert sum(t_lm.STATS["ba_windows"].values()) >= 1
+    assert sum(t_lm.BA_WINDOWS.read().values()) >= 1

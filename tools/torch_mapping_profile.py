@@ -5,12 +5,15 @@
 Drives the bench's scene through the port's `Tracker` (pipelined, depth 3)
 with the mapping callback set as `bench.py` sets it, twice:
 
-1. timing pass: each mapping callback (`run_mapping_stage` and
-   `covis_kf_count`) between two `torch.cuda.synchronize()` calls on the host
-   clock, and each whole frame likewise; no profiler;
-2. profile pass: each mapping callback under one `torch.profiler` profile.
-   `run_mapping_stage` names its stages with `record_function`
-   ("mapping/<stage>"); the tool reads those ranges from the trace: the host
+1. timing pass: each mapping callback (`run_mapping_stage`, a replay of
+   the stage's CUDA graph, and `covis_kf_count`) between two
+   `torch.cuda.synchronize()` calls on the host clock, and each whole frame
+   likewise; no profiler;
+2. profile pass: each mapping callback under one `torch.profiler` profile,
+   with the stage run eagerly (`MappingStep.body()` of the window's
+   step: what its graph holds, launched one operation at a time).  The
+   stage names its parts with `record_function` ("mapping/<stage>"); the
+   tool reads those ranges from the trace: the host
    time of each range (the time to launch its work; the profiler inflates
    it, so the column says "profiled"), and the device operations (kernels
    and copies) launched inside it with their summed device time, each
@@ -44,8 +47,9 @@ PREFIX = "mapping/"
 
 def run(frames, calib, cfg, profiled):
     from multi_orb_slam_tpu_torch.frontend import tracking
-    from multi_orb_slam_tpu_torch.mapping import local_mapping
+    from multi_orb_slam_tpu_torch.mapping import local_mapping, mapping_graph
     from multi_orb_slam_tpu_torch.optim import local_ba
+    from multi_orb_slam_tpu_torch.utils import graphs
 
     tracker = tracking.Tracker(calib, cfg, pipelined=True, pipeline_depth=3)
     pending = [None]
@@ -57,8 +61,16 @@ def run(frames, calib, cfg, profiled):
 
     def mapping(kf_slot):
         hint = int(pending[0]) if pending[0] is not None else None
-        m = local_mapping.run_mapping_stage(tracker.map, kf_slot, tracker.frame_id,
-                                            calib, cfg, covis_hint=hint)
+        if profiled:
+            step = mapping_graph.step_for(
+                calib.K.device, cfg, calib,
+                *local_mapping._window(tracker.map, kf_slot, cfg, hint))
+            step.load(state=tracker.map, kf_slot=kf_slot, frame_id=tracker.frame_id,
+                      calib=calib)
+            m = graphs.clone(step.body())
+        else:
+            m = local_mapping.run_mapping_stage(tracker.map, kf_slot, tracker.frame_id,
+                                                calib, cfg, covis_hint=hint)
         with torch.profiler.record_function(PREFIX + "covis_kf_count"):
             pending[0] = local_mapping.covis_kf_count(m, kf_slot)
         torch.cuda.synchronize()
@@ -80,7 +92,7 @@ def run(frames, calib, cfg, profiled):
         return m
 
     tracker.kf_inserted_cb = kf_cb
-    ba0, win0 = dict(local_ba.STATS), dict(local_mapping.STATS["ba_windows"])
+    ba0, win0 = local_ba.STATS.read(), local_mapping.BA_WINDOWS.read()
     times = []
     for g, d in frames:
         torch.cuda.synchronize()
@@ -89,12 +101,13 @@ def run(frames, calib, cfg, profiled):
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t) * 1e3)
     traj = tracker.absolute_trajectory()
-    windows = {k: v - win0.get(k, 0) for k, v in local_mapping.STATS["ba_windows"].items()
+    windows = {k: v - win0.get(k, 0) for k, v in local_mapping.BA_WINDOWS.read().items()
                if v - win0.get(k, 0)}
+    ba = local_ba.STATS.read()
     return {
         "frame_ms": times, "kf_frames": kf_frames, "callback_ms": cb_ms, "windows": windows,
-        "solves": local_ba.STATS["solves"] - ba0["solves"],
-        "iterations": local_ba.STATS["iterations"] - ba0["iterations"],
+        "solves": ba.get("solves", 0) - ba0.get("solves", 0),
+        "iterations": ba.get("iterations", 0) - ba0.get("iterations", 0),
         "tracked": sum(1 for *_, lost in traj if not lost),
         "keyframes": int(tracker.map.n_kf), "map_points": int(tracker.map.n_mp),
         "rows": dict(rows), "device_ops_in_ranges": ops[0], "device_ops_profiled": ops[1],
