@@ -27,15 +27,22 @@ Phases (each raises on failure; the script then exits non-zero):
    card could take: bytes over 3.35 TB/s or operations over 67 Top/s, the
    larger) is computed from the phase's inputs and is to be held against
    `device_ms`.
+   The port's counterpart of `jax.jit` is `utils/graphs.graphed`: on the
+   card each decorated function (`build_frame`, `build_frame_stereo`, the
+   stepwise tracking stages, `insert_keyframe_jit`, `track_frame_fused`,
+   the mapping stage) is one CUDA graph replay a call, captured once per
+   input signature; `graphs.eager()` calls their bodies instead, which this
+   script does only for the references the replays are held to.
 3. Tracking path: the first 20 frames of the bench's orbit scene (4000
    textured squares, 640x480, the dual ~90-degree rig) through
    `Tracker(calib, cfg, pipelined=True, pipeline_depth=3)` with the default
-   `SlamConfig` and no mapping callback.
+   `SlamConfig` and no mapping callback, on graphs (`build_frame` and
+   `track_frame_fused` replays).
 4. Mapping path: all 60 orbit frames through the same tracker with
    `kf_inserted_cb` running `run_mapping_stage` and `covis_kf_count` (the
-   next keyframe's window hint), as `bench.py` sets it.  Every stage is one
-   replay of the CUDA graph of `_mapping_stage_fused` (`MappingStep`,
-   captured on a window bucket's first use), which computes its local BA
+   next keyframe's window hint), as `bench.py` sets it, under
+   `graphs.eager()`: the eager reference of the graph phases below.  Each
+   stage is the body of `_mapping_stage_fused`, which computes its local BA
    (one `point_sums` launch) on every keyframe and takes it once the map
    holds more than 2 keyframes.  The orbit maps 4 keyframes and takes 2
    local BAs; with none taken, or with `point_sums` launched other than
@@ -59,7 +66,7 @@ Phases (each raises on failure; the script then exits non-zero):
    fused-orbit run's last map and newest keyframe at the default
    `SlamConfig`, each local-BA window bucket (12, 16, 24, 32 free
    keyframes) forced through `covis_hint`: the eager body, then two replays
-   of the bucket's graph, each under `set_sync_debug_mode("error")` and
+   of the bucket's graph entry, each under `set_sync_debug_mode("error")` and
    bit-equal to the body in every field; the capture's ms, a replay's ms
    (CUDA events) against the body's, its device ms and operations
    (`torch.profiler`), the live and total LM trips, and a
@@ -67,9 +74,22 @@ Phases (each raises on failure; the script then exits non-zero):
    `track_frames_scan` over the same frames in chunks of 4 after the first
    (one [4, 8] read back a chunk, the mapping stage between chunks): every
    frame tracked, ATE < 0.02 m; ms a chunk and the keyframes.
+   Then `system-graphs`: the 60 orbit frames through
+   `System(DUAL_RGBD)` (mapping and loop stage on), stepwise (the default)
+   and pipelined (depth 3), each once under `graphs.eager()` and once on
+   graphs: ms a frame (median, max, and without a keyframe), host syncs a
+   frame (`set_sync_debug_mode("warn")`), the graph entries each run
+   called (replays, capture ms), launches, keyframes, camera centres
+   against the eager run, ATE, peak memory, and a `{"system_graphs": ...}`
+   line.  It fails unless both routes insert the eager run's keyframes,
+   every centre lies within 1 mm of the eager run's, every frame tracks,
+   ATE < 0.02 m, every kernel launched, and the launches of `fast_score`,
+   `gather_patches` and `point_sums` are the replays' calls times their
+   captures' counts (`window_match` at least that).
 5. System path, `system-reloc`: the 60 orbit frames through
    `System(sensor=DUAL_RGBD, calib=..., cfg=...)` on the card (its defaults:
-   unpipelined, mapping and the loop stage on), with 3 frames blanked out
+   unpipelined, mapping and the loop stage on; from here on every path
+   runs its graphed functions as replays), with 3 frames blanked out
    (grey 100, depth 0) once the vocabulary exists.  The orbit gives 4
    keyframes in 60 frames, so the script builds the `LoopCloser` with
    `vocab_min_descs=1500` instead of 6000 and says so.  The path fails unless
@@ -133,22 +153,26 @@ Phases (each raises on failure; the script then exits non-zero):
    and scores 192 keyframes a rank x 4096 words of 10^6 against the whole
    table (within 1e-6, the query its own best).  The kernels are built by
    phase 1, so the ranks only load them.  A `{"distributed": ...}` line.
-12. A JSON line of per-kernel results (with `launches_stereo`,
-   `launches_driver`, `launches_distributed`, `launches_fused`,
-   `launches_scan` and `launches_mapping_graph`, and the stereo path's
-   shapes under `kitti_shapes`), then the last line
+12. A `{"graph_entries": [...]}` line (every signature captured in the
+   run: calls, warm-up and capture ms), a JSON line of per-kernel results
+   (with `launches_stereo`, `launches_driver`, `launches_distributed`,
+   `launches_fused`, `launches_scan`, `launches_mapping_graph` and
+   `launches_system_graphs`, and the stereo path's shapes under
+   `kitti_shapes`), then the last line
    `{"ok": true, "device": {...}}`.
 
 Without a CUDA device the script exits 1 before printing any result.
 """
 
 import collections
+import contextlib
 import json
 import pathlib
 import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -644,10 +668,13 @@ def render_scene(name, calib, dev):
     return frames, np.asarray(poses, np.float64)
 
 
-def run_path(name, frames, poses_gt, calib, cfg, mapping, fused=False, info=None):
+def run_path(name, frames, poses_gt, calib, cfg, mapping, fused=False, info=None,
+             eager=False):
     """Drive the Tracker over `frames`, with or without the mapping
     callback (with `fused`, `fuse_extraction=True`: every OK frame one
-    replay of the fused step's CUDA graph); returns (launch counts,
+    replay of the fused step's CUDA graph; with `eager`, every graphed
+    function and the mapping stage called eagerly, under `graphs.eager()`:
+    the reference the graphs are held to); returns (launch counts,
     keyframes mapped, local-BA solves).  `info`, a dict, receives the
     tracker, the frame times (ms), the camera centres and the frames whose
     keyframe was mapped."""
@@ -656,6 +683,7 @@ def run_path(name, frames, poses_gt, calib, cfg, mapping, fused=False, info=None
     from multi_orb_slam_tpu_torch.mapping import local_mapping
     from multi_orb_slam_tpu_torch.ops import kernels
     from multi_orb_slam_tpu_torch.optim import local_ba
+    from multi_orb_slam_tpu_torch.utils import graphs
 
     tracker = tracking.Tracker(calib, cfg, pipelined=True, pipeline_depth=3,
                                fuse_extraction=fused)
@@ -682,13 +710,14 @@ def run_path(name, frames, poses_gt, calib, cfg, mapping, fused=False, info=None
     windows0, ba0 = local_mapping.BA_WINDOWS.read(), local_ba.STATS.read()
     kernels.reset_launch_counts()
     times = []
-    for g, d in frames:
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        tracker.process(g, d)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t)
-    traj = tracker.absolute_trajectory()
+    with graphs.eager() if eager else contextlib.nullcontext():
+        for g, d in frames:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            tracker.process(g, d)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+        traj = tracker.absolute_trajectory()
     torch.cuda.synchronize()
     launches = dict(kernels.LAUNCHES)
 
@@ -709,7 +738,9 @@ def run_path(name, frames, poses_gt, calib, cfg, mapping, fused=False, info=None
     ba = {k: v - ba0.get(k, 0) for k, v in local_ba.STATS.read().items()}
     solves, iters, trips = ba.get("solves", 0), ba.get("iterations", 0), ba.get("trips", 0)
     label = (f"{name}-{n}" + (" with mapping" if mapping else " tracking only")
-             + (", fused step as a CUDA graph" if fused else ""))
+             + (", fused step as a CUDA graph" if fused else "")
+             + (", eager (graphs.eager())" if eager else ", graphed functions as replays"
+                if not fused else ""))
     if info is not None:
         info.update(tracker=tracker, ms=ms, centres=est.numpy(), kf_frames=kf_frames,
                     map_frames=map_frames, map_ms=np.asarray(map_ms), ate=ate)
@@ -757,7 +788,7 @@ def phase_main_paths(dev):
         raise AssertionError(f"tracking path never launched: {missing}")
     eager = {}
     mapped, n_mapped, solves = run_path("orbit", frames, poses_gt, calib, cfg, mapping=True,
-                                        info=eager)
+                                        info=eager, eager=True)
     missing = [k for k, v in mapped.items() if v <= 0]
     if missing or solves == 0 or mapped["point_sums"] != n_mapped:
         raise AssertionError(f"mapping path on the orbit: never launched {missing}; "
@@ -767,9 +798,10 @@ def phase_main_paths(dev):
     fused, fused_tracker = phase_fused_orbit(frames, poses_gt, calib, cfg, eager)
     graph = phase_mapping_graph(fused_tracker, calib, cfg)
     scan = phase_scan(frames, poses_gt, calib, cfg)
+    system_graphs = phase_system_graphs(frames, poses_gt, calib, cfg)
     system = phase_system_reloc(frames, poses_gt, calib, cfg)
     firsts = np.stack([g.cpu().numpy() for g, _ in frames[:DIST_DRYRUN_WORLD]])
-    return tracking, mapped, system, firsts, fused, scan, graph
+    return tracking, mapped, system, firsts, fused, scan, graph, system_graphs
 
 
 FUSED_CENTRE_LIMIT_M = 1e-3   # the graph's camera centres against the eager run's
@@ -811,6 +843,7 @@ def phase_fused_orbit(frames, poses_gt, calib, cfg, eager):
     lies within 1 mm of that run's, one capture was made and all four
     kernels launched, counted through the replays.  Returns the counts."""
     from multi_orb_slam_tpu_torch.frontend import tracking
+    from multi_orb_slam_tpu_torch.utils import graphs
 
     info = {}
     launches, n_mapped, _ = run_path("orbit", frames, poses_gt, calib, cfg, mapping=True,
@@ -838,10 +871,11 @@ def phase_fused_orbit(frames, poses_gt, calib, cfg, eager):
     span_ms = cuda_ms(fs.run, reps=3, warmup=0)
     dev_ms, dev_ops = profiled_device(fs.run)
     newest = tracking._newest_kf(tr.map)
-    fb_ms, fb_ops = profiled_device(lambda: tracking.track_reference_kf(
-        tr.map, newest, tr.prev_Tcw, tr.prev_frame, tr.calib, cfg))
-    ins_ms, ins_ops = profiled_device(lambda: tracking.insert_keyframe_impl(
-        tr.map, tr.prev_frame, tr.prev_Tcw, tr.prev_mp, tr.calib, cfg, fs.frame_id))
+    with graphs.eager():     # the branches as the graph holds them, launched one by one
+        fb_ms, fb_ops = profiled_device(lambda: tracking.track_reference_kf(
+            tr.map, newest, tr.prev_Tcw, tr.prev_frame, tr.calib, cfg))
+        ins_ms, ins_ops = profiled_device(lambda: tracking.insert_keyframe_impl(
+            tr.map, tr.prev_frame, tr.prev_Tcw, tr.prev_mp, tr.calib, cfg, fs.frame_id))
     print(f"  one replay: {dev_ops} device operations, {dev_ms:.3f} ms of device time "
           f"(torch.profiler); {span_ms:.3f} ms a replay by CUDA events, unprofiled; the branches "
           f"computed on every frame: reference-KF fallback {fb_ms:.3f} ms ({fb_ops} ops), "
@@ -874,10 +908,10 @@ def phase_fused_orbit(frames, poses_gt, calib, cfg, eager):
 MAPPING_BUCKET_HINTS = {12: 11, 16: 15, 24: 23, 32: 31}   # window bucket -> covis_hint
 
 
-def body_split(step):
+def body_split(entry):
     """The device ms and operations of each "mapping/<stage>" range of one
-    eager call of a `MappingStep`'s body under `torch.profiler` (its
-    launches are taken back: they are a measurement's, not a path's)."""
+    eager call of a graph entry's body under `torch.profiler` (its launches
+    are taken back: they are a measurement's, not a path's)."""
     from multi_orb_slam_tpu_torch.ops import kernels
 
     counts = dict(kernels.LAUNCHES)
@@ -886,7 +920,7 @@ def body_split(step):
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:
-        step.body()
+        entry.body()
         torch.cuda.synchronize()
     read_ranges(prof, "mapping/", rows)
     kernels.LAUNCHES.update(counts)
@@ -896,16 +930,17 @@ def body_split(step):
 def phase_mapping_graph(tracker, calib, cfg):
     """`mapping-graph`: the mapping stage of the fused-orbit run's last map
     and newest keyframe, at the default `SlamConfig`, with each local-BA
-    window bucket forced through `covis_hint`: the eager body once, then
-    the `MappingStep`'s replay (captured on its first use, in the orbit
-    run or here) and a second replay, each under
-    `set_sync_debug_mode("error")` and each bit-equal to the eager body in
-    every field of the map.  Prints per bucket the capture's ms, a replay's
-    ms (CUDA events) against the eager body's (host clock), its device ms
-    and operations (`torch.profiler`), and the live and total LM trips.
-    Returns the launch counts of the replays."""
+    window bucket forced through `covis_hint`: the eager body once (the
+    graphed `_mapping_stage_fused` under `graphs.eager()`), then two calls
+    of it, each a replay of the bucket's entry (captured on its first use,
+    in the orbit run or here) under `set_sync_debug_mode("error")` and
+    each bit-equal to the eager body in every field of the map.  Prints
+    per bucket the capture's ms, a replay's ms (CUDA events) against the
+    eager body's (host clock), its device ms and operations
+    (`torch.profiler`), and the live and total LM trips.  Returns the
+    launch counts of the replays."""
     from multi_orb_slam_tpu_torch.frontend import tracking
-    from multi_orb_slam_tpu_torch.mapping import local_mapping, mapping_graph
+    from multi_orb_slam_tpu_torch.mapping import local_mapping
     from multi_orb_slam_tpu_torch.ops import kernels
     from multi_orb_slam_tpu_torch.optim import local_ba
     from multi_orb_slam_tpu_torch.utils import graphs
@@ -916,60 +951,70 @@ def phase_mapping_graph(tracker, calib, cfg):
     print(f"mapping-graph: the fused-orbit map ({int(st.n_kf)} keyframes, {int(st.n_mp)} map "
           f"points; capacities K {cfg.max_kf}, M {cfg.max_mp}, F {cfg.max_feat} x {cfg.n_cams} "
           f"cameras, ba_local_cap {cfg.ba_local_cap}), keyframe slot {kf}, frame {fid}")
+    stage = local_mapping._mapping_stage_fused
+    # the slot and frame id as `run_mapping_stage` passes them
+    kf_t, fid_t = (torch.full((), v, dtype=torch.int32, device=calib.K.device)
+                   for v in (kf, fid))
     kernels.reset_launch_counts()
     launches_replays = dict.fromkeys(kernels.LAUNCHES, 0)
     rows, failures = [], []
     for bucket, hint in MAPPING_BUCKET_HINTS.items():
         window = local_mapping._window(st, kf, cfg, hint)
-        step = mapping_graph.step_for(calib.K.device, cfg, calib, *window)
-        captured_before = step.graph is not None
-        step.load(state=st, kf_slot=kf, frame_id=fid, calib=calib)
+        args = (st, kf_t, fid_t, calib, cfg) + tuple(window)
+        entry = stage.entry(*args)
+        captured_before = entry.graph is not None
         # the eager body (its launches are a comparison's, not the path's)
         counts = dict(kernels.LAUNCHES)
-        graphs.clone(step.body())
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        eager = graphs.clone(step.body())
-        torch.cuda.synchronize()
+        with graphs.eager():
+            stage(*args)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            eager = stage(*args)
+            torch.cuda.synchronize()
         eager_ms = (time.perf_counter() - t) * 1e3
         kernels.LAUNCHES.update(counts)
+        if entry.graph is None:
+            entry.capture()
         ba0 = local_ba.STATS.read()
         counts = dict(kernels.LAUNCHES)
-        outs = [step.run(), step.run()]
+        outs = []
+        for _ in range(2):
+            with graphs.no_host_sync(calib.K.device):
+                outs.append(stage(*args))
         torch.cuda.synchronize()
         for k, v in kernels.LAUNCHES.items():
             launches_replays[k] += v - counts[k]
         ba = {k: (v - ba0.get(k, 0)) // 2 for k, v in local_ba.STATS.read().items()}
         equal = [all(torch.equal(a, b) for a, b in zip(graphs.tensors(o), graphs.tensors(eager)))
                  for o in outs]
-        replay_ms = cuda_ms(step.graph.replay, reps=5, warmup=1)
-        dev_ms, dev_ops = profiled_device(step.graph.replay)
-        split = body_split(step)
+        replay_ms = cuda_ms(entry.graph.replay, reps=5, warmup=1)
+        dev_ms, dev_ops = profiled_device(entry.graph.replay)
+        split = body_split(entry)
         live, trips = ba.get("iterations", 0), ba.get("trips", 0)
         solve_ms = split.get("solve", {}).get("device_ms", 0.0)
         dead_ms = solve_ms * (trips - live) / max(trips, 1)
         row = {"bucket": bucket, "n_free": window[0], "phases": window[2],
-               "captured_in_orbit_run": captured_before, "warmup_ms": step.warmup_ms,
-               "capture_ms": step.capture_ms, "eager_ms": eager_ms, "replay_ms": replay_ms,
+               "captured_in_orbit_run": captured_before, "warmup_ms": entry.warmup_ms,
+               "capture_ms": entry.capture_ms, "eager_ms": eager_ms, "replay_ms": replay_ms,
                "replay_device_ms": dev_ms, "replay_device_ops": dev_ops,
                "lm_live_trips": live, "lm_trips": trips, "dead_trips_device_ms": dead_ms,
                "body_device_ms": {k: r["device_ms"] for k, r in split.items()},
-               "graph_kernels": step.graph_launches, "bit_equal": equal}
+               "graph_kernels": entry.graph_launches, "bit_equal": equal}
         rows.append(row)
-        print(f"  bucket {bucket} (phases {window[2]}): capture {step.capture_ms:.1f} ms "
-              f"(warm-up {step.warmup_ms:.1f} ms{', in the orbit run' if captured_before else ''})"
+        print(f"  bucket {bucket} (phases {window[2]}): capture {entry.capture_ms:.1f} ms "
+              f"(warm-up {entry.warmup_ms:.1f} ms{', in the orbit run' if captured_before else ''})"
               f"; replay {replay_ms:.2f} ms (CUDA events) against the eager body's "
               f"{eager_ms:.2f} ms; a replay {dev_ops} device operations, {dev_ms:.3f} ms of "
               f"device time; LM trips live {live} of {trips}, the dead ones ~{dead_ms:.2f} ms "
               f"of device time (the body's solve {solve_ms:.2f} ms over "
-              f"{trips} trips); kernels in the graph {step.graph_launches}; two replays "
+              f"{trips} trips); kernels in the graph {entry.graph_launches}; two replays "
               f"bit-equal to the eager body {equal}")
         print("    the eager body's device ms by stage: " + ", ".join(
             f"{k} {r['device_ms']:.2f}" for k, r in split.items()))
         if not all(equal):
             failures.append(f"bucket {bucket}: replays bit-equal {equal}")
-        if step.graph_launches["point_sums"] != 1 or step.graph_launches["window_match"] < 1:
-            failures.append(f"bucket {bucket}: kernels in the graph {step.graph_launches}")
+        if entry.graph_launches["point_sums"] != 1 or entry.graph_launches["window_match"] < 1:
+            failures.append(f"bucket {bucket}: kernels in the graph {entry.graph_launches}")
     print(json.dumps({"mapping_graph": rows}))
     print(f"  kernel launches of the replays: {launches_replays}")
     if failures:
@@ -1044,6 +1089,168 @@ def phase_scan(frames, poses_gt, calib, cfg):
     if not ate < ATE_LIMIT_M:
         raise AssertionError(f"scan: ATE {ate:.4f} m >= {ATE_LIMIT_M} m")
     return launches
+
+
+def count_host_syncs(fn):
+    """`fn()` under `torch.cuda.set_sync_debug_mode("warn")`: its result, and
+    how many of its operations made the host wait on the device (one
+    warning each: reads back, copies from pageable memory)."""
+    before = torch.cuda.get_sync_debug_mode()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(before)
+    return out, sum("synchroniz" in str(w.message) for w in caught)
+
+
+def entry_label(entry):
+    """A graph entry's function and the shape of its first tensor input."""
+    from multi_orb_slam_tpu_torch.utils import graphs
+
+    first = graphs.tensors(tuple(entry.inputs.values()))[0]
+    return f"{entry.name}{list(first.shape)}"
+
+
+def system_run(frames, calib, cfg, pipelined, eager):
+    """The frames through `System(DUAL_RGBD)` (mapping and loop stage on),
+    on graphs or under `graphs.eager()`: frame ms, host syncs a frame,
+    states, keyframes, camera centres, launch counts, peak memory, and the
+    graph entries the run called (with the calls it made of each)."""
+    from multi_orb_slam_tpu_torch import system as system_mod
+    from multi_orb_slam_tpu_torch.ops import kernels
+    from multi_orb_slam_tpu_torch.utils import graphs
+
+    calls0 = {id(e): (e.n_calls, e.graph is not None) for _, e in graphs.all_entries()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    times, syncs, states = [], [], []
+    with graphs.eager() if eager else contextlib.nullcontext():
+        slam = system_mod.System(sensor=system_mod.Sensor.DUAL_RGBD, calib=calib, cfg=cfg,
+                                 pipelined=pipelined, pipeline_depth=3 if pipelined else 1)
+        for i, (g, d) in enumerate(frames):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            _, n = count_host_syncs(
+                lambda: slam.track_rgbd(g[0], d[0], g[1], d[1], timestamp=i / 30.0))
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+            syncs.append(n)
+            states.append(slam.get_tracking_state())
+        traj = slam.tracker.absolute_trajectory()
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    st = slam.map
+    entries = []
+    for _, e in graphs.all_entries():
+        n0, had_graph = calls0.get(id(e), (0, False))
+        if e.n_calls > n0:
+            entries.append({"entry": entry_label(e), "calls": e.n_calls - n0,
+                            "captured_in_this_run": not had_graph, "warmup_ms": e.warmup_ms,
+                            "capture_ms": e.capture_ms, "graph_kernels": e.graph_launches})
+    return {
+        "ms": np.asarray(times), "syncs": np.asarray(syncs), "states": states,
+        "lost": [lost for *_, lost in traj],
+        "centres": np.stack([np.linalg.inv(np.asarray(T, np.float64))[:3, 3]
+                             for _, _, T, _ in traj]),
+        "keyframes": sorted(int(f) for f, v in zip(st.kf_frame_id.tolist(),
+                                                   st.kf_valid.tolist()) if v),
+        "inserted": slam.metrics.counters["keyframes_inserted"],
+        "launches": launches, "peak_mb": torch.cuda.max_memory_allocated() / 2 ** 20,
+        "entries": entries}
+
+
+def phase_system_graphs(frames, poses_gt, calib, cfg):
+    """`system-graphs`: the orbit frames through `System(DUAL_RGBD)`,
+    stepwise (unpipelined, the facade's default) and pipelined (depth 3),
+    with mapping and the loop stage on, each once under `graphs.eager()` and
+    once on graphs (every graphed function one replay a call).  Fails unless
+    the graph run inserts the eager run's keyframes, its camera centres lie
+    within 1 mm of the eager run's, every frame tracks, ATE < 20 mm, every
+    kernel launched, and the launches of `fast_score`, `gather_patches` and
+    `point_sums` (only ever launched inside graphs here) are the replays'
+    calls times their captures' counts.  Returns the graph runs' launches."""
+    from multi_orb_slam_tpu_torch.geometry import align
+
+    n = len(frames)
+    gt = torch.from_numpy(np.stack([np.linalg.inv(T)[:3, 3] for T in poses_gt[:n]]))
+    total = None
+    rows, failures = [], []
+    for route, pipelined in (("stepwise", False), ("pipelined", True)):
+        eager = system_run(frames, calib, cfg, pipelined, eager=True)
+        graph = system_run(frames, calib, cfg, pipelined, eager=False)
+        ate = float(align.ate_rmse(torch.from_numpy(graph["centres"]), gt))
+        d_centre = float(np.abs(graph["centres"] - eager["centres"]).max())
+        ok_frames = [i for i, lost in enumerate(graph["lost"]) if not lost and i > 0]
+        kf_frames = set(eager["keyframes"])
+        plain = [i for i in ok_frames if i not in kf_frames]
+        replayed = collections.Counter()
+        for e in graph["entries"]:
+            for k, v in e["graph_kernels"].items():
+                replayed[k] += v * e["calls"]
+        e_ms, g_ms = eager["ms"], graph["ms"]
+        row = {
+            "route": route, "frames": n, "eager_ms_median": float(np.median(e_ms)),
+            "eager_ms_max": float(e_ms.max()), "graph_ms_median": float(np.median(g_ms)),
+            "graph_ms_max": float(g_ms.max()),
+            "graph_ms_median_no_keyframe": float(np.median(g_ms[plain])),
+            "eager_ms_median_no_keyframe": float(np.median(e_ms[plain])),
+            "host_syncs_per_ok_frame_median": float(np.median(graph["syncs"][ok_frames])),
+            "host_syncs_per_ok_frame_max": int(graph["syncs"][ok_frames].max()),
+            "host_syncs_no_keyframe_frame_median": float(np.median(graph["syncs"][plain])),
+            "eager_host_syncs_per_ok_frame_median": float(np.median(eager["syncs"][ok_frames])),
+            "keyframes": graph["keyframes"], "keyframes_eager": eager["keyframes"],
+            "inserted": graph["inserted"], "centre_vs_eager_m": d_centre, "ate_m": ate,
+            "peak_mb_eager": eager["peak_mb"], "peak_mb_graph": graph["peak_mb"],
+            "launches": graph["launches"], "launches_replayed": dict(replayed),
+            "entries": graph["entries"]}
+        rows.append(row)
+        print(f"system-graphs, {route}: System(DUAL_RGBD, pipelined={pipelined}) over {n} orbit "
+              f"frames, mapping and loop stage on; ms a frame eager / graphs: median "
+              f"{row['eager_ms_median']:.2f} / {row['graph_ms_median']:.2f}, max "
+              f"{row['eager_ms_max']:.2f} / {row['graph_ms_max']:.2f}, frames without a keyframe "
+              f"median {row['eager_ms_median_no_keyframe']:.2f} / "
+              f"{row['graph_ms_median_no_keyframe']:.2f}")
+        print(f"  host syncs (set_sync_debug_mode('warn')) a frame on graphs: median "
+              f"{row['host_syncs_per_ok_frame_median']:.0f} over OK frames after the first "
+              f"(max {row['host_syncs_per_ok_frame_max']}; frames without a keyframe "
+              f"{row['host_syncs_no_keyframe_frame_median']:.0f}), eager "
+              f"{row['eager_host_syncs_per_ok_frame_median']:.0f}; keyframes {graph['keyframes']} "
+              f"(eager {eager['keyframes']}); camera centres within {d_centre * 1e3:.4f} mm of "
+              f"the eager run's; ATE {ate * 1e3:.3f} mm; peak memory eager / graphs "
+              f"{eager['peak_mb']:.0f} / {graph['peak_mb']:.0f} MiB")
+        for e in graph["entries"]:
+            cap = (f"captured here: warm-up {e['warmup_ms']:.1f} ms, capture "
+                   f"{e['capture_ms']:.1f} ms" if e["captured_in_this_run"]
+                   else "captured in an earlier phase")
+            print(f"    {e['entry']}: {e['calls']} replays ({cap}); kernels in the graph "
+                  f"{e['graph_kernels']}")
+        print(f"  kernel launches {graph['launches']}; of the replays (calls x capture's "
+              f"counts) {dict(replayed)}")
+        if graph["keyframes"] != eager["keyframes"]:
+            failures.append(f"{route}: keyframes {graph['keyframes']} against the eager "
+                            f"run's {eager['keyframes']}")
+        if not d_centre < FUSED_CENTRE_LIMIT_M:
+            failures.append(f"{route}: camera centres {d_centre:.6f} m from the eager run's")
+        if any(graph["lost"]) or not ate < ATE_LIMIT_M:
+            failures.append(f"{route}: lost {graph['lost'].count(True)} frames, ATE {ate:.4f} m")
+        missing = [k for k, v in graph["launches"].items() if v <= 0]
+        if missing:
+            failures.append(f"{route}: never launched {missing}")
+        off = [k for k in ("fast_score", "gather_patches", "point_sums")
+               if graph["launches"][k] != replayed[k]]
+        if off or graph["launches"]["window_match"] < replayed["window_match"]:
+            failures.append(f"{route}: launches {graph['launches']} against the replays' "
+                            f"{dict(replayed)}")
+        total = graph["launches"] if total is None else {
+            k: v + graph["launches"][k] for k, v in total.items()}
+    print(json.dumps({"system_graphs": rows}))
+    if failures:
+        raise AssertionError("system-graphs: " + "; ".join(failures))
+    return total
 
 
 N_BLANK = 3                  # blank frames of the system path
@@ -1682,6 +1889,7 @@ def stereo_frame_split(root, calib, orb_cfg, depth0):
     from multi_orb_slam_tpu_torch.frontend import frame
     from multi_orb_slam_tpu_torch.io import png
     from multi_orb_slam_tpu_torch.ops import orb, stereo
+    from multi_orb_slam_tpu_torch.utils import graphs
 
     gl, gr = (torch.from_numpy(png.read_gray(f"{root}/image_{c}/000000.png").astype(np.float32))
               .to(calib.K.device) for c in (0, 1))
@@ -1701,6 +1909,8 @@ def stereo_frame_split(root, calib, orb_cfg, depth0):
     (_, ur), t_match = timed(lambda: stereo.stereo_match_depth(fl, fr_, calib.bf, orb_cfg.scale_factor))
     _, t_sub = timed(lambda: stereo.subpixel_refine(gl, gr, fl.xy[:, 0], fl.xy[:, 1], ur, calib.bf))
     fr, t_all = timed(lambda: frame.build_frame_stereo(gl, gr, calib, orb_cfg))
+    with graphs.eager():
+        _, t_eager = timed(lambda: frame.build_frame_stereo(gl, gr, calib, orb_cfg))
     depth = fr.depth[0].cpu().numpy()
     valid = fr.valid[0].cpu().numpy()
     xy = fr.xy[0].cpu().numpy()
@@ -1712,7 +1922,7 @@ def stereo_frame_split(root, calib, orb_cfg, depth0):
     frac = float(has.sum() / max(valid.sum(), 1))
     print(f"  build_frame_stereo on frame 0, ms (synchronised, median of 5): extraction of both "
           f"images {t_ex:.2f}, stereo match {t_match:.2f}, subpixel {t_sub:.2f}; the whole "
-          f"frame {t_all:.2f}")
+          f"frame {t_all:.2f} as a replay of its graph, {t_eager:.2f} eager")
     print(f"  frame 0: {int(valid.sum())} valid left keypoints, {int(has.sum())} with a stereo "
           f"depth ({frac:.1%}), median relative depth error {rel:.4f} against the rendered depth "
           f"at {int(ok.sum())} of them")
@@ -2281,7 +2491,7 @@ def main():
     }
     kitti = phase_kitti_shapes(dev, rng)
     t = time.perf_counter()
-    tracking, mapped, system, firsts, fused, scan, graph = phase_main_paths(dev)
+    tracking, mapped, system, firsts, fused, scan, graph, system_graphs = phase_main_paths(dev)
     t = elapsed("orbit paths and system-reloc", t)
     loop = phase_system_loop(dev)
     t = elapsed("system-loop", t)
@@ -2296,6 +2506,12 @@ def main():
     distributed = phase_distributed(dev, firsts)
     elapsed("distributed", t)
     print(f"chip_smoke: {time.perf_counter() - T_START:.1f} s since the start")
+    from multi_orb_slam_tpu_torch.utils import graphs
+
+    # every signature captured in the run: the port's compile time, per function
+    print(json.dumps({"graph_entries": [
+        {"entry": entry_label(e), "calls": e.n_calls, "warmup_ms": e.warmup_ms,
+         "capture_ms": e.capture_ms} for _, e in graphs.all_entries()]}))
     rows = []
     for name, res in results.items():
         source, replaces = KERNELS[name]
@@ -2308,6 +2524,7 @@ def main():
                      "launches_distributed": distributed[name],
                      "launches_fused": fused[name], "launches_scan": scan[name],
                      "launches_mapping_graph": graph[name],
+                     "launches_system_graphs": system_graphs[name],
                      **res, **extra})
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -4,7 +4,8 @@ Counterpart of `multi_orb_slam_tpu/frontend/frame.py`: `build_frame` (ORB
 extraction of every rig camera in one batched call, per-camera keypoint
 undistortion, depth lookup and the RGB-D virtual right coordinate) and
 `build_frame_stereo` (depth from left / right ORB matching).
-Cameras are a leading axis `[C, F, ...]`.
+Cameras are a leading axis `[C, F, ...]`.  Both are `graphs.graphed`, as
+the reference jits them: one CUDA graph replay a call on the card.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import torch
 
 from ..geometry import camera as cam_mod
 from ..ops import orb, stereo
+from ..utils import graphs
 
 
 class FrameData(NamedTuple):
@@ -46,6 +48,7 @@ def sample_depth(depth_img: torch.Tensor, xy: torch.Tensor,
     return torch.where(valid, d, torch.zeros_like(d))
 
 
+@graphs.graphed(static_argnames=("orb_cfg",))
 def build_frame(grays: torch.Tensor, depths: torch.Tensor,
                 calib: cam_mod.CameraParams,
                 orb_cfg: orb.ORBConfig = orb.ORBConfig()) -> FrameData:
@@ -63,6 +66,7 @@ def build_frame(grays: torch.Tensor, depths: torch.Tensor,
     )
 
 
+@graphs.graphed(static_argnames=("orb_cfg",))
 def build_frame_stereo(gray_left: torch.Tensor, gray_right: torch.Tensor,
                        calib: cam_mod.CameraParams,
                        orb_cfg: orb.ORBConfig = orb.ORBConfig()) -> FrameData:

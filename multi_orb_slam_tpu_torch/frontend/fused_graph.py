@@ -16,7 +16,8 @@ JAX package's one jitted program a frame.  `FusedStep` owns that step:
   is not already the buffer;
 - the kernel wrappers count launches on the host, and a replay calls no
   wrapper: the launches the capture made are added to `kernels.LAUNCHES` on
-  every replay; the warm-up's and the capture's own launches do not count.
+  every replay; the warm-up's and the capture's own launches do not count
+  (`utils/graphs.capture`, which `graphs.graphed` captures with too).
 
 On the card a failed capture raises; nothing falls back to eager launches.
 On the CPU (the tests) the same object calls the body directly, buffers and
@@ -27,8 +28,6 @@ graph of `tracking.scan_step`, back to back.
 """
 
 from __future__ import annotations
-
-import time
 
 import numpy as np
 import torch
@@ -168,36 +167,14 @@ class FusedStep:
             raise RuntimeError(f"FusedStep: {missing} never loaded")
 
     def capture(self) -> None:
-        """Warm the step up on a side stream (library handles, the constant
-        tables), then capture the body into a CUDA graph.  The buffers are
-        left as they were; the launches of both do not count."""
-        from ..ops import _build
-
+        """Warm the step up on a side stream, then capture the body into a
+        CUDA graph (`graphs.capture`).  The buffers are left as they were;
+        the launches of both do not count."""
         self._check_loaded()
-        _build.load()
-        counts0 = dict(kernels.LAUNCHES)
-        cur = torch.cuda.current_stream(self.device)
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(cur)
-        torch.cuda.synchronize(self.device)
-        t0 = time.perf_counter()
-        with torch.cuda.stream(side):
-            self._call()
-        cur.wait_stream(side)
-        torch.cuda.synchronize(self.device)
-        t1 = time.perf_counter()
-        counts1 = dict(kernels.LAUNCHES)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            self._body()
-        torch.cuda.synchronize(self.device)
-        t2 = time.perf_counter()
-        self.graph_launches = {k: v - counts1[k] for k, v in kernels.LAUNCHES.items()}
-        kernels.LAUNCHES.update(counts0)
-        self.graph = graph
+        cap = graphs.capture(self.device, self._call, self._body)
+        self.graph, self.graph_launches = cap.graph, cap.launches
+        self.warmup_ms, self.capture_ms = cap.warmup_ms, cap.capture_ms
         self.n_captures += 1
-        self.warmup_ms = (t1 - t0) * 1e3
-        self.capture_ms = (t2 - t1) * 1e3
 
     def run(self) -> None:
         """One frame: a replay of the captured graph on the card (captured

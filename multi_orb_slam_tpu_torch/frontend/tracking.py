@@ -14,12 +14,19 @@ The reference runs one frame as one fused device dispatch whose two
 Here `track_frame_fused` runs both branches on every frame and takes their
 outputs with `torch.where` on the device predicate (`select`), so the host
 reads nothing back while it enqueues a frame; `track_frame_fused_images`
-adds the frame's extraction, and `track_frames_scan` runs G frames.  On the
-card the `Tracker` replays `track_frame_fused_images` as one CUDA graph a
-frame (`fused_graph.FusedStep`).  The `Tracker` keeps the reference's
-pipelined bookkeeping (status scalars resolved `pipeline_depth` frames
-later), so keyframe callbacks and the local-point cache refresh happen on
-the same frames as in the reference.
+adds the frame's extraction, and `track_frames_scan` runs G frames.
+
+The functions the reference jits are `graphs.graphed`: on the card each is
+one CUDA graph replay a call, captured once per input signature, with the
+slot and frame ids traced (`track_motion_model`, `track_reference_kf`,
+`build_local_points_cache`, `track_local_map`, `insert_keyframe_jit`,
+`track_frame_fused`, and `frame.build_frame` / `build_frame_stereo`).  The
+`Tracker` runs every OK frame on them, stepwise or pipelined; with
+`fuse_extraction` it replays `track_frame_fused_images` as one CUDA graph a
+frame on buffers of its own (`fused_graph.FusedStep`).  The `Tracker` keeps
+the reference's pipelined bookkeeping (status scalars resolved
+`pipeline_depth` frames later), so keyframe callbacks and the local-point
+cache refresh happen on the same frames as in the reference.
 
 State updates are functional, as in the reference: a stage clones the map
 arrays it writes and returns a new `MapState`.
@@ -231,6 +238,15 @@ def insert_keyframe_impl(state: ms.MapState, fr: frame_mod.FrameData,
     return new_state, kf_mp_new
 
 
+@graphs.graphed(static_argnames=("cfg",))
+def insert_keyframe_jit(state: ms.MapState, fr: frame_mod.FrameData, Tcw: torch.Tensor,
+                        frame_mp: torch.Tensor, calib: cam_mod.CameraParams, cfg: SlamConfig,
+                        frame_id):
+    """The stepwise tracker's keyframe insertion (`insert_keyframe_impl`
+    with the per-camera cap on new points), one graph replay on the card."""
+    return insert_keyframe_impl(state, fr, Tcw, frame_mp, calib, cfg, frame_id)
+
+
 # the fixed point of update_point_geometry's sums: 1.0, and the largest
 # magnitude a term keeps (2^20 m, so 2^52 a term; a point has at most one
 # observation a (keyframe, camera) row and K * C <= 2^9 rows, so a sum
@@ -293,6 +309,7 @@ def update_point_geometry(state: ms.MapState, cfg: SlamConfig) -> ms.MapState:
 # ---------------------------------------------------------------------------
 
 
+@graphs.graphed(static_argnames=("cfg",))
 def track_motion_model(state: ms.MapState, prev: frame_mod.FrameData,
                        prev_Tcw: torch.Tensor, prev_mp: torch.Tensor,
                        velocity: torch.Tensor, cur: frame_mod.FrameData,
@@ -319,6 +336,7 @@ def track_motion_model(state: ms.MapState, prev: frame_mod.FrameData,
     return Tcw, frame_mp, n_matches, n_inl, n_map_inl
 
 
+@graphs.graphed(static_argnames=("cfg",))
 def track_reference_kf(state: ms.MapState, ref_kf: torch.Tensor,
                        prev_Tcw: torch.Tensor, cur: frame_mod.FrameData,
                        calib: cam_mod.CameraParams, cfg: SlamConfig):
@@ -340,6 +358,7 @@ def track_reference_kf(state: ms.MapState, ref_kf: torch.Tensor,
     return Tcw, frame_mp, n_matches, n_inl
 
 
+@graphs.graphed(static_argnames=("cfg",))
 def build_local_points_cache(state: ms.MapState, anchor_slot, cfg: SlamConfig
                              ) -> search.LocalPoints:
     """Local-map point batch anchored on a keyframe (normally the newest):
@@ -372,6 +391,7 @@ def build_local_points_cache(state: ms.MapState, anchor_slot, cfg: SlamConfig
     return search.gather_local_points(state, local_mask, cap, priority=rel)
 
 
+@graphs.graphed(static_argnames=("cfg",))
 def track_local_map(state: ms.MapState, Tcw: torch.Tensor, cur: frame_mod.FrameData,
                     frame_mp: torch.Tensor, pts: search.LocalPoints,
                     calib: cam_mod.CameraParams, cfg: SlamConfig):
@@ -439,6 +459,7 @@ def _newest_kf(state: ms.MapState) -> torch.Tensor:
     return torch.argmax(fid).to(torch.int32)
 
 
+@graphs.graphed(static_argnames=("cfg",))
 def track_frame_fused(state: ms.MapState, prev: frame_mod.FrameData,
                       prev_Tcw: torch.Tensor, prev_mp: torch.Tensor,
                       velocity: torch.Tensor, tstate: torch.Tensor,
@@ -591,15 +612,20 @@ class TrackState:
 class Tracker:
     """Host orchestration of the tracking stages.
 
-    With `pipelined=True` each OK frame runs `track_frame_fused` and its
+    Without `pipelined` an OK frame runs the reference's stepwise route:
+    `track_motion_model`, `track_reference_kf` where the motion model
+    fails, `track_local_map`, `insert_keyframe_jit` on a keyframe, with the
+    reference's host reads of inlier counts between them.  With
+    `pipelined=True` each OK frame runs `track_frame_fused` and its
     status scalars are resolved `pipeline_depth` frames later, exactly as in
     the reference; on a CUDA device they come back through a pinned host
     ring, each copy with an event that the resolution waits on.  With
     `fuse_extraction` too, `process` runs an OK frame as
     `track_frame_fused_images` on a `fused_graph.FusedStep`: one replay of a
     CUDA graph a frame on the card (captured on the first OK frame), the
-    function itself on the CPU.  The first frame and the LOST path stay
-    eager.
+    function itself on the CPU.  Every other stage above is a graphed
+    function (one replay a call on the card); the first frame's map
+    initialization and the LOST path's relocalization stay eager.
 
     The tracker runs on the CUDA device unless the caller asks for another
     one (`device="cpu"`, as the CPU tests do); with `device=None` and no
@@ -892,7 +918,7 @@ class Tracker:
                         or (since_kf >= cfg.min_frames_kf
                             and (weak_tracking or need_close))))
         if need_kf and int(self.map.n_kf) < cfg.max_kf - 1:
-            self.map, kf_mp = insert_keyframe_impl(
+            self.map, kf_mp = insert_keyframe_jit(
                 self.map, fr, Tcw, frame_mp, self.calib, cfg, self.frame_id)
             self.last_kf_frame = self.frame_id
             self.last_kf_slot = int(_newest_kf(self.map))

@@ -17,9 +17,10 @@ reference's one jitted program a keyframe: the host reads nothing.  Its two
 `lax.cond`s (local BA once the map holds more than 2 keyframes, capacity
 relief once the point store is over 90% full) compute both branches and
 select (`tracking.select`), and local BA's LM loop runs on the device
-(`optim/local_ba.py`).  On the card the stage is a CUDA graph, captured
-once per (configuration, window bucket) and replayed once a keyframe
-(`mapping_graph.MappingStep`); on the CPU the same object calls the body.
+(`optim/local_ba.py`).  `_mapping_stage_fused` is `graphs.graphed` with the
+window bucket static: on the card one CUDA graph, captured once per
+(configuration, window bucket) and replayed once a keyframe; on the CPU
+the body itself.
 Without `covis_hint` (and with `ba_adaptive`) the window's covisible count
 is read back first; a stage switched off takes the stepwise path, whose
 host `if`s read `n_kf`, as the reference's does.
@@ -35,7 +36,7 @@ from __future__ import annotations
 import torch
 
 from ..config import SlamConfig, inv_sigma2_of_level
-from ..frontend.tracking import select, update_point_geometry
+from ..frontend.tracking import _device_scalar, select, update_point_geometry
 from ..geometry import camera as cam_mod
 from ..ops import hamming
 from ..optim import local_ba
@@ -232,10 +233,9 @@ def run_mapping_stage(state: ms.MapState, kf_slot, frame_id,
     map has more than 2 keyframes) -> keyframe culling -> point geometry.
 
     With every stage on (the default), the pass is `_mapping_stage_fused`
-    on a `mapping_graph.MappingStep` (a CUDA graph replay on the card) and
-    also evicts the weakest non-recent points when the point store is over
-    90% full; the map it returns is the caller's own (a copy of the step's
-    outputs).  A pass with a stage switched off runs stage by stage and
+    (a CUDA graph replay on the card) and also evicts the weakest
+    non-recent points when the point store is over 90% full; the map it
+    returns is the caller's own (a copy of the graph's outputs).  A pass with a stage switched off runs stage by stage and
     does not relieve capacity (as in the reference).
 
     `covis_hint`: a caller-provided covisible-keyframe count for adaptive
@@ -245,10 +245,11 @@ def run_mapping_stage(state: ms.MapState, kf_slot, frame_id,
     """
     n_free, n_fixed, phases = _window(state, kf_slot, cfg, covis_hint)
     if do_triangulate and do_fuse and do_ba and do_cull:
-        from . import mapping_graph  # it imports this module
-
-        return mapping_graph.run_stage(state, kf_slot, frame_id, calib, cfg,
-                                       n_free, n_fixed, phases)
+        dev = state.mp_pos.device
+        return _mapping_stage_fused(
+            state, _device_scalar(kf_slot, torch.int32, dev).reshape(()),
+            _device_scalar(frame_id, torch.int32, dev).reshape(()), calib, cfg,
+            n_free, n_fixed, phases)
     STATS.add("stages", 1, state.mp_pos.device)
     if do_cull:
         with _stage("cull_points"):
@@ -270,6 +271,7 @@ def run_mapping_stage(state: ms.MapState, kf_slot, frame_id,
         return update_point_geometry(state, cfg)
 
 
+@graphs.graphed(static_argnames=("cfg", "n_free", "n_fixed", "phases"))
 def _mapping_stage_fused(state: ms.MapState, kf_slot: torch.Tensor, frame_id: torch.Tensor,
                          calib: cam_mod.CameraParams, cfg: SlamConfig, n_free: int,
                          n_fixed: int, phases: tuple) -> ms.MapState:

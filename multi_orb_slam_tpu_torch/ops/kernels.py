@@ -11,7 +11,7 @@ Counterpart of `multi_orb_slam_tpu/ops/pallas_kernels.py`.  Each kernel has
 - a launch count (`LAUNCHES[name]`), raised by one where the wrapper
   launches the kernel and nowhere else, and by the launches a captured CUDA
   graph holds on each of its replays (`add_launches`, from
-  `frontend/fused_graph.py`: a replay calls no wrapper).
+  `utils/graphs.py` and `frontend/fused_graph.py`: a replay calls no wrapper).
 
 | kernel           | replaces (pallas_kernels.py)              | source                 | bound on the H100 by |
 | ---------------- | ----------------------------------------- | ---------------------- | -------------------- |

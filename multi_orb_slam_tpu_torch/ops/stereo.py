@@ -42,7 +42,7 @@ def stereo_match_depth(featsL, featsR, bf, scale_factor: float = 1.2,
     bi, bd, b2 = hamming.masked_argmin2(d, cand)
     ok = (bd <= th_hamming) & (bd.to(torch.float32) <= 0.9 * b2.to(torch.float32))
     xr_best = xR[bi]
-    bf = torch.as_tensor(bf, dtype=torch.float32, device=xL.device)
+    bf = bf.to(xL.device, torch.float32) if isinstance(bf, torch.Tensor) else float(bf)
     depth = torch.where(ok, bf / torch.clamp(xL - xr_best, min=min_disp),
                         torch.zeros_like(xL))
     uright = torch.where(ok, xr_best, torch.full_like(xL, -1.0))
@@ -93,7 +93,7 @@ def subpixel_refine(gray_left: torch.Tensor, gray_right: torch.Tensor,
     xr_ref = xr0.to(torch.float32) + best.to(torch.float32) + delta + win
     disp = (xl0 + win).to(torch.float32) - xr_ref
     valid = (uright >= 0) & (disp > 0.1)
-    bf = torch.as_tensor(bf, dtype=torch.float32, device=dev)
+    bf = bf.to(dev, torch.float32) if isinstance(bf, torch.Tensor) else float(bf)
     depth = torch.where(valid, bf / torch.clamp(disp, min=0.1), torch.zeros_like(disp))
     # uright consistent with the float keypoint coordinate
     return depth, torch.where(valid, xL - disp, torch.full_like(disp, -1.0))

@@ -32,7 +32,7 @@ tables of the schedule; the re-gate and its cost re-evaluation (a
 `lax.cond` in the reference) are computed on every trip that can still
 reach a phase boundary, and selected.
 The host reads nothing, so the solve can be captured into a CUDA graph
-(`mapping/mapping_graph.py`).  The dense solve is
+(`local_mapping._mapping_stage_fused`).  The dense solve is
 `torch.linalg.solve_ex` (no error check, so no sync; a singular system
 gives a non-finite step, which the cost test rejects).
 

@@ -432,15 +432,18 @@ def test_cuda_mapping_stage_runs_on_the_card():
 def test_cuda_mapping_step_replays_equal_the_body():
     """The small scene tracked on the card with the mapping stage; the maps
     that went into its last two stages (both with local BA) go, one after
-    the other, through a fresh `MappingStep` (captured before the first):
-    each replay (and its copy out, under `set_sync_debug_mode("error")`)
-    is the same bits as the body called eagerly on the same buffers, and
-    each replay adds the launches of its capture (one `point_sums`, the
-    fusion's `window_match`) to the counts, and nothing more."""
+    the other, through one entry of the graphed
+    `local_mapping._mapping_stage_fused` (captured before the first, unless
+    the tracker's own stages captured it): each
+    replay (and its copy out, under `set_sync_debug_mode("error")`) is the
+    same bits as the body called eagerly (`graphs.eager()`) on the same
+    inputs, and each replay adds the launches of its capture (one
+    `point_sums`, the fusion's `window_match`) to the counts, and nothing
+    more."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from multi_orb_slam_tpu_torch.frontend import tracking
-    from multi_orb_slam_tpu_torch.mapping import local_mapping, mapping_graph
+    from multi_orb_slam_tpu_torch.mapping import local_mapping
     from multi_orb_slam_tpu_torch.utils import graphs
 
     cfg, calib, seq = _small_scene()
@@ -457,29 +460,38 @@ def test_cuda_mapping_step_replays_equal_the_body():
         tracker.process(g, d)
     snaps = [x for x in snaps if int(x[0].n_kf) > 2][-2:]
     assert len(snaps) == 2
-    step = mapping_graph.MappingStep(tracker.calib, cfg, "cuda", 12, 12, ((5, True), (8, False)))
+    fn = local_mapping._mapping_stage_fused
+    window = (12, 12, ((5, True), (8, False)))
+    entry = None
     kernels.reset_launch_counts()
     for i, (st, k, fid) in enumerate(snaps):
-        step.load(state=st, kf_slot=k, frame_id=fid)
+        args = (st, torch.full((), k, dtype=torch.int32, device="cuda"),
+                torch.full((), fid, dtype=torch.int32, device="cuda"), tracker.calib, cfg,
+                *window)
         counts = dict(kernels.LAUNCHES)
-        eager = graphs.clone(step.body())
+        with graphs.eager():
+            eager = fn(*args)
         kernels.LAUNCHES.update(counts)
-        if step.graph is None:
-            step.capture()     # the host waits here, once
+        if entry is None:
+            entry = fn.entry(*args)
+            calls0 = entry.n_calls
+            if entry.graph is None:
+                entry.capture()     # the host waits here, once
+        assert fn.entry(*args) is entry
         torch.cuda.set_sync_debug_mode("error")
         try:
-            out = step.run()
+            out = fn(*args)
         finally:
             torch.cuda.set_sync_debug_mode(0)
         for name in st._fields:
             assert torch.equal(getattr(out, name), getattr(eager, name)), (i, name)
         assert int(out.n_kf) >= 3
-    assert step.n_captures == 1 and step.n_replays == 2
-    assert step.graph_launches["point_sums"] == 1 and step.graph_launches["window_match"] >= 1
-    assert kernels.LAUNCHES == {k: 2 * v for k, v in step.graph_launches.items()}
+    assert entry.n_calls - calls0 == 2
+    assert entry.graph_launches["point_sums"] == 1 and entry.graph_launches["window_match"] >= 1
+    assert kernels.LAUNCHES == {k: 2 * v for k, v in entry.graph_launches.items()}
     print(f"mapping graph: 2 replays the eager bits, kernels in the graph "
-          f"{step.graph_launches}, warm-up {step.warmup_ms:.1f} ms, capture "
-          f"{step.capture_ms:.1f} ms")
+          f"{entry.graph_launches}, warm-up {entry.warmup_ms:.1f} ms, capture "
+          f"{entry.capture_ms:.1f} ms")
 
 
 @pytest.mark.cuda
@@ -930,3 +942,175 @@ def test_cuda_fused_tracker_replays_read_nothing_back():
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
     assert host[0] in (0, 1)
+
+
+GRAPHED_NAMES = ("build_frame", "build_frame_stereo", "track_motion_model",
+                 "track_reference_kf", "build_local_points_cache", "track_local_map",
+                 "insert_keyframe_jit", "track_frame_fused")
+
+
+@pytest.fixture(scope="module")
+def graph_cases():
+    """The eight graphed functions of the tracking path, each with the
+    arguments of two snapshots of the small scene tracked on the card (two
+    frames, two slots, two frame ids; two rendered stereo pairs for
+    `build_frame_stereo`): {name: (function, arguments a, arguments b)}."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from multi_orb_slam_tpu_torch.frontend import frame, tracking
+    from multi_orb_slam_tpu_torch.geometry import camera as cam_mod
+    from multi_orb_slam_tpu_torch.io import synthetic
+    from multi_orb_slam_tpu_torch.utils import graphs
+
+    cfg, calib, seq = _small_scene()
+    tracker = tracking.Tracker(calib, cfg, device="cuda")
+    cal = tracker.calib
+    snaps = []
+    for i, (g, d) in enumerate(zip(seq.grays, seq.depths)):
+        if i in (8, 11):
+            cur = frame.build_frame(torch.from_numpy(g).float().cuda(),
+                                    torch.from_numpy(d).float().cuda(), cal, cfg.orb)
+            s = dict(state=tracker.map, prev=tracker.prev_frame, prev_Tcw=tracker.prev_Tcw,
+                     prev_mp=tracker.prev_mp, velocity=tracker.velocity, cur=cur, fid=i,
+                     slot=tracker.last_kf_slot, pts=tracker._ensure_local_pts(),
+                     tstate=graphs.filled([tracker.last_kf_frame, tracker.ref_kf_tracked, 0],
+                                          torch.int32, "cuda"),
+                     grays=torch.from_numpy(g).float().cuda(),
+                     depths=torch.from_numpy(d).float().cuda())
+            s["Tcw"], s["frame_mp"] = tracking.track_motion_model(
+                s["state"], s["prev"], s["prev_Tcw"], s["prev_mp"], s["velocity"], cur, cal,
+                cfg)[:2]
+            snaps.append(s)
+        tracker.process(g, d)
+
+    K = np.array([260.0, 260.0, 160.0, 120.0], np.float32)
+    world = synthetic.make_box_world(seed=0, n_points=3000)
+    T_lr = np.eye(4, dtype=np.float32)
+    T_lr[0, 3] = -20.0 / 260.0
+    stereo_cal = cam_mod.CameraParams(K=torch.from_numpy(K)[None].cuda(),
+                                      dist=torch.zeros((1, 5), device="cuda"),
+                                      T_rc=torch.eye(4, device="cuda")[None],
+                                      bf=torch.tensor(20.0, device="cuda"), width=320,
+                                      height=240)
+    pairs = []
+    for T in synthetic.orbit_trajectory(8)[:2]:
+        gl, _ = synthetic.render_rgbd(world, K, T, 240, 320)
+        gr, _ = synthetic.render_rgbd(world, K, T_lr @ T, 240, 320)
+        pairs.append((torch.from_numpy(np.round(gl)).float().cuda(),
+                      torch.from_numpy(np.round(gr)).float().cuda(), stereo_cal, cfg.orb))
+
+    def args(name, s, slot):
+        return {
+            "build_frame": (s["grays"], s["depths"], cal, cfg.orb),
+            "track_motion_model": (s["state"], s["prev"], s["prev_Tcw"], s["prev_mp"],
+                                   s["velocity"], s["cur"], cal, cfg),
+            "track_reference_kf": (s["state"], slot, s["prev_Tcw"], s["cur"], cal, cfg),
+            "build_local_points_cache": (s["state"], slot, cfg),
+            "track_local_map": (s["state"], s["Tcw"], s["cur"], s["frame_mp"], s["pts"], cal,
+                                cfg),
+            "insert_keyframe_jit": (s["state"], s["cur"], s["Tcw"], s["frame_mp"], cal, cfg,
+                                    s["fid"]),
+            "track_frame_fused": (s["state"], s["prev"], s["prev_Tcw"], s["prev_mp"],
+                                  s["velocity"], s["tstate"], s["pts"], s["cur"], cal, cfg,
+                                  s["fid"]),
+        }[name]
+
+    # the second call anchors on the first keyframe: a map that gained no
+    # keyframe between the snapshots gives the same local points for one slot
+    assert snaps[0]["slot"] > 0
+    out = {name: (getattr(tracking, name), args(name, snaps[0], snaps[0]["slot"]),
+                  args(name, snaps[1], 0))
+           for name in GRAPHED_NAMES if name not in ("build_frame", "build_frame_stereo")}
+    out["build_frame"] = (frame.build_frame, args("build_frame", snaps[0], 0),
+                          args("build_frame", snaps[1], 0))
+    out["build_frame_stereo"] = (frame.build_frame_stereo, pairs[0], pairs[1])
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", GRAPHED_NAMES)
+def test_cuda_graphed_replays_are_the_eager_calls(graph_cases, name):
+    """Each graphed function of the tracking path on two inputs of one
+    signature (other frames, slots and frame ids): each replay is the same
+    bits as the body called eagerly (`graphs.eager()`), the second replay
+    leaves the first one's outputs intact, both go through one entry, and
+    each replay adds its capture's launches to the counts and nothing
+    more."""
+    from multi_orb_slam_tpu_torch.utils import graphs
+
+    fn, args_a, args_b = graph_cases[name]
+    counts = dict(kernels.LAUNCHES)
+    with graphs.eager():
+        eager_a, eager_b = fn(*args_a), fn(*args_b)
+    kernels.LAUNCHES.update(counts)
+    out_a = fn(*args_a)              # captured on first use
+    kept = graphs.clone(out_a)
+    entry = fn.entry(*args_a)
+    assert fn.entry(*args_b) is entry and entry.graph is not None
+    kernels.reset_launch_counts()
+    out_b = fn(*args_b)
+    assert kernels.LAUNCHES == {k: entry.graph_launches.get(k, 0) for k in kernels.LAUNCHES}
+    for a, b in ((out_a, eager_a), (out_b, eager_b), (out_a, kept)):
+        ta, tb = graphs.tensors(a), graphs.tensors(b)
+        assert len(ta) == len(tb) > 0
+        for k, (x, y) in enumerate(zip(ta, tb)):
+            assert torch.equal(x, y), (name, k)
+    assert any(not torch.equal(x, y) for x, y in zip(graphs.tensors(out_a),
+                                                     graphs.tensors(out_b)))
+    print(f"{name}: replays the eager bits, warm-up {entry.warmup_ms:.1f} ms, capture "
+          f"{entry.capture_ms:.1f} ms, kernels in the graph {entry.graph_launches}")
+
+
+def _orbit(n):
+    """The bench's orbit scene (640x480, the dual ~90-degree rig) and its
+    configuration: (cfg, calib, frames on the card, poses)."""
+    from multi_orb_slam_tpu_torch.config import SlamConfig
+    from multi_orb_slam_tpu_torch.geometry import camera as cam_mod, se3
+    from multi_orb_slam_tpu_torch.io import synthetic
+
+    T_rc1 = torch.eye(4)
+    T_rc1[:3, :3] = se3.so3_exp(torch.tensor([0.0, np.pi / 2, 0.0]))
+    T_rc1[:3, 3] = torch.tensor([0.161, 0.004, -0.071])
+    calib = cam_mod.CameraParams(
+        K=torch.tensor([[520.9, 521.0, 320.0, 240.0]] * 2), dist=torch.zeros((2, 5)),
+        T_rc=torch.stack([torch.eye(4), T_rc1]), bf=torch.tensor(40.0), width=640, height=480)
+    cfg = SlamConfig(n_cams=2, width=640, height=480, orb=orb.ORBConfig(n_features=1024))
+    seq = synthetic.make_sequence(n_frames=n, K=calib.K[0].numpy(), T_rc=calib.T_rc.numpy(),
+                                  height=480, width=640, n_points=4000)
+    frames = [(torch.from_numpy(np.asarray(g, np.float32)).cuda(),
+               torch.from_numpy(np.asarray(d, np.float32)).cuda())
+              for g, d in zip(seq.grays, seq.depths)]
+    return cfg, calib, frames
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pipelined", [False, True])
+def test_cuda_system_on_graphs_is_the_eager_system(pipelined):
+    """The orbit's first 20 frames through `System(DUAL_RGBD)` (mapping and
+    loop stage on), once on graphs and once under `graphs.eager()`: the same
+    keyframes and the same camera centres, to the bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import contextlib
+
+    from multi_orb_slam_tpu_torch import system
+    from multi_orb_slam_tpu_torch.utils import graphs
+
+    cfg, calib, frames = _orbit(20)
+    runs = {}
+    for mode in ("eager", "graphs"):
+        with graphs.eager() if mode == "eager" else contextlib.nullcontext():
+            slam = system.System(sensor=system.Sensor.DUAL_RGBD, calib=calib, cfg=cfg,
+                                 pipelined=pipelined, pipeline_depth=3 if pipelined else 1)
+            for g, d in frames:
+                slam.track_rgbd(g[0], d[0], g[1], d[1])
+            traj = slam.tracker.absolute_trajectory()
+        st = slam.map
+        kfs = sorted(int(f) for f, v in zip(st.kf_frame_id.tolist(), st.kf_valid.tolist()) if v)
+        centres = np.stack([np.linalg.inv(T)[:3, 3] for _, _, T, _ in traj])
+        runs[mode] = (kfs, centres, [lost for *_, lost in traj])
+    assert runs["graphs"][0] == runs["eager"][0] and len(runs["eager"][0]) >= 2
+    assert not any(runs["graphs"][2])
+    np.testing.assert_array_equal(runs["graphs"][1], runs["eager"][1])
+    print(f"System(pipelined={pipelined}) orbit-20: keyframes {runs['graphs'][0]}, centres "
+          f"the eager run's")

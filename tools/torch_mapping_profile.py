@@ -10,8 +10,9 @@ with the mapping callback set as `bench.py` sets it, twice:
    `torch.cuda.synchronize()` calls on the host clock, and each whole frame
    likewise; no profiler;
 2. profile pass: each mapping callback under one `torch.profiler` profile,
-   with the stage run eagerly (`MappingStep.body()` of the window's
-   step: what its graph holds, launched one operation at a time).  The
+   with the stage run eagerly (the body of the graphed
+   `local_mapping._mapping_stage_fused` on the window's bucket: what its
+   graph holds, launched one operation at a time).  The
    stage names its parts with `record_function` ("mapping/<stage>"); the
    tool reads those ranges from the trace: the host
    time of each range (the time to launch its work; the profiler inflates
@@ -47,9 +48,8 @@ PREFIX = "mapping/"
 
 def run(frames, calib, cfg, profiled):
     from multi_orb_slam_tpu_torch.frontend import tracking
-    from multi_orb_slam_tpu_torch.mapping import local_mapping, mapping_graph
+    from multi_orb_slam_tpu_torch.mapping import local_mapping
     from multi_orb_slam_tpu_torch.optim import local_ba
-    from multi_orb_slam_tpu_torch.utils import graphs
 
     tracker = tracking.Tracker(calib, cfg, pipelined=True, pipeline_depth=3)
     pending = [None]
@@ -62,12 +62,12 @@ def run(frames, calib, cfg, profiled):
     def mapping(kf_slot):
         hint = int(pending[0]) if pending[0] is not None else None
         if profiled:
-            step = mapping_graph.step_for(
-                calib.K.device, cfg, calib,
+            def scalar(v):
+                return torch.full((), v, dtype=torch.int32, device=calib.K.device)
+
+            m = local_mapping._mapping_stage_fused.__wrapped__(
+                tracker.map, scalar(kf_slot), scalar(tracker.frame_id), calib, cfg,
                 *local_mapping._window(tracker.map, kf_slot, cfg, hint))
-            step.load(state=tracker.map, kf_slot=kf_slot, frame_id=tracker.frame_id,
-                      calib=calib)
-            m = graphs.clone(step.body())
         else:
             m = local_mapping.run_mapping_stage(tracker.map, kf_slot, tracker.frame_id,
                                                 calib, cfg, covis_hint=hint)
