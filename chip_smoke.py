@@ -30,7 +30,10 @@ Phases (each raises on failure; the script then exits non-zero):
    The port's counterpart of `jax.jit` is `utils/graphs.graphed`: on the
    card each decorated function (`build_frame`, `build_frame_stereo`, the
    stepwise tracking stages, `insert_keyframe_jit`, `track_frame_fused`,
-   the mapping stage) is one CUDA graph replay a call, captured once per
+   the mapping stage; relocalization's stages with `pnp_solve` and
+   `optimize_pose`; the loop's word match, `solve_sim3`, `search_by_sim3`,
+   `optimize_sim3`, projection count, `optimize_essential_graph`, global
+   BA and `merge_gba`) is one CUDA graph replay a call, captured once per
    input signature; `graphs.eager()` calls their bodies instead, which this
    script does only for the references the replays are held to.
 3. Tracking path: the first 20 frames of the bench's orbit scene (4000
@@ -96,18 +99,34 @@ Phases (each raises on failure; the script then exits non-zero):
    the state is LOST on the blank frames, a relocalization succeeds with
    `window_match` launched inside it, the state is OK on the last frame, the
    last pose is within 5 cm of ground truth, ATE over the tracked frames is
-   under 20 mm and all four kernels launched.  It prints each
-   relocalization's time, candidates and host reads, the vocabulary's
-   training time, and (from a second, profiled call on a copy of the lost
-   frame's inputs, after the counts were read) the time split by stage.
+   under 20 mm, all four kernels launched (the three that run only inside
+   graphs exactly the replays' calls times their captures' counts), and
+   the frame is found by its first candidate with 5 host reads.  It prints
+   each relocalization's time, candidates and host reads, the vocabulary's
+   training time, and, on copies of the found frame's inputs after the
+   counts were read: `relocalize` on graphs again against two calls under
+   `graphs.eager()` (the same bits, or the phase fails), the time split by
+   stage under the profiler, each stage entry's capture ms and one
+   replay's device ms and operations, and a `{"reloc_graphs": ...}` line.
    Then `save_map`, a fresh `System`, `load_map` (it comes back LOST), the
    loaded keyframes indexed again by the script, and one frame found again.
 6. System path, `system-loop`: the loop circuit of
    `tests/test_circuit_e2e.py` through `System` with loop closing and
    global BA (a loop closed, the GBA merged, ATE < 0.20 m, every loop role
    of `window_match` launched, the GBA dispatch held under
-   `torch.cuda.set_sync_debug_mode("error")`); the frames that ran the
-   keyframe stages are timed apart from the rest.
+   `torch.cuda.set_sync_debug_mode("error")`, launches against the
+   replays as in `system-reloc`); the frames that ran the keyframe stages
+   are timed apart from the rest.  Then the loop keyframe's stages again
+   on copies of their inputs, on graphs and under `graphs.eager()`: host ms
+   of `_compute_sim3`, `_correct_loop`, the pose graph, the GBA dispatch and
+   the merge (with the run's first call, which captured), `_compute_sim3`
+   and the merge bit-equal, the pose graph and `_correct_loop`'s poses
+   within 1e-4, the global BA's poses within 1e-3 and its points within a
+   tenth of a sigma in their information metric (1 mm where H_pp's
+   smallest eigenvalue is >= 10 m^-2), as the distributed BA's card test
+   holds them (float `index_add_` sums in no fixed order: two eager
+   calls' spread printed beside), each entry's capture and replay, and a
+   `{"loop_graphs": ...}` line.
 7. The stereo path's kernel shapes (before the paths, with the other kernel
    phases): `fast_score` on the [2 x 8, 376, 1241] canvas of a KITTI-size
    stereo pair (1241 is no multiple of 4: the scalar-load path),
@@ -1240,11 +1259,10 @@ def phase_system_graphs(frames, poses_gt, calib, cfg):
         missing = [k for k, v in graph["launches"].items() if v <= 0]
         if missing:
             failures.append(f"{route}: never launched {missing}")
-        off = [k for k in ("fast_score", "gather_patches", "point_sums")
-               if graph["launches"][k] != replayed[k]]
-        if off or graph["launches"]["window_match"] < replayed["window_match"]:
-            failures.append(f"{route}: launches {graph['launches']} against the replays' "
-                            f"{dict(replayed)}")
+        try:
+            check_replayed(route, graph["launches"], dict(replayed))
+        except AssertionError as e:
+            failures.append(str(e))
         total = graph["launches"] if total is None else {
             k: v + graph["launches"][k] for k, v in total.items()}
     print(json.dumps({"system_graphs": rows}))
@@ -1265,17 +1283,95 @@ def map_gauge_centres(poses):
     return np.stack([np.linalg.inv(T @ np.linalg.inv(poses[0]))[:3, 3] for T in poses])
 
 
-def profile_relocalize(stash):
-    """The time split of one relocalization: `relocalize` again on copies of
-    the inputs of the call that found the frame, once to warm up and once
-    under `torch.profiler`, read by its "reloc/<stage>" ranges."""
-    from multi_orb_slam_tpu_torch.reloc import relocalization
+RELOC_ENTRIES = ("match_stage", "pnp_solve", "pose_ba_inputs", "optimize_pose", "top_up_stage")
+LOOP_ENTRIES = ("word_match_stage", "solve_sim3", "search_by_sim3", "optimize_sim3",
+                "guided_count_stage", "optimize_essential_graph", "run_global_ba_arrays",
+                "merge_gba")
+LOOP_POSE_TOL = 1e-4         # the pose graph's poses, graphs against eager
+GBA_POSE_TOL = 1e-3          # the global BA's, as its card-against-CPU test
+GBA_INFO_FLOOR = 10.0        # m^-2: the smallest H_pp eigenvalue of a point held to 1 mm
+GBA_MAHALANOBIS = 0.1        # sqrt(dp^T H_pp dp) of every point: a tenth of its own sigma
 
-    relocalization.relocalize(*stash)
+
+def host_ms(fn):
+    """`fn()` between two synchronisations: its result and its wall ms."""
     torch.cuda.synchronize()
     t = time.perf_counter()
-    ok, _, _, n = relocalization.relocalize(*stash)
-    plain_ms = (time.perf_counter() - t) * 1e3
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t) * 1e3
+
+
+def entry_calls():
+    """{id(entry): calls} of every graph entry so far."""
+    from multi_orb_slam_tpu_torch.utils import graphs
+
+    return {id(e): e.n_calls for _, e in graphs.all_entries()}
+
+
+def replayed_launches(before):
+    """Kernel launches of the replays since `entry_calls()` gave `before`:
+    each entry's calls times its capture's counts."""
+    from multi_orb_slam_tpu_torch.utils import graphs
+
+    out = collections.Counter()
+    for _, e in graphs.all_entries():
+        for k, v in e.graph_launches.items():
+            out[k] += v * (e.n_calls - before.get(id(e), 0))
+    return dict(out)
+
+
+def entry_table(names):
+    """Each captured entry of the graphed functions `names`: calls, warm-up
+    and capture ms, the kernels in its graph, and one replay's device ms and
+    operations (`profiled_device` on the entry's own buffers: the functions
+    are pure).  Printed, and returned as rows."""
+    from multi_orb_slam_tpu_torch.utils import graphs
+
+    rows = []
+    for name, e in graphs.all_entries():
+        if name not in names or e.graph is None:
+            continue
+        dev_ms, n_ops = profiled_device(e.graph.replay)
+        rows.append({"entry": entry_label(e), "calls": e.n_calls, "warmup_ms": e.warmup_ms,
+                     "capture_ms": e.capture_ms, "replay_device_ms": dev_ms,
+                     "replay_device_ops": n_ops, "graph_kernels": e.graph_launches})
+        print(f"    {entry_label(e)}: {e.n_calls} calls, warm-up {e.warmup_ms:.1f} ms, capture "
+              f"{e.capture_ms:.1f} ms; a replay {dev_ms:.3f} ms of device time in {n_ops} "
+              f"device operations; kernels in the graph {e.graph_launches}")
+    return rows
+
+
+def check_replayed(label, launches, replayed):
+    """Launches of a path against its replays' (calls x captures' counts):
+    equal for the kernels that run only inside graphs on the path, at least
+    that for `window_match` (also launched eagerly by the loop's fusion)."""
+    off = [k for k in ("fast_score", "gather_patches", "point_sums")
+           if launches[k] != replayed.get(k, 0)]
+    if off or launches["window_match"] < replayed.get("window_match", 0):
+        raise AssertionError(f"{label}: launches {launches} against the replays' {replayed}")
+
+
+def profile_relocalize(stash, first_ms):
+    """One relocalization on graphs against `graphs.eager()`: `relocalize`
+    again on copies of the inputs of the call that found the frame (the
+    path's call was the first, with the captures, in `first_ms`), then twice
+    eagerly; the same bits; the time split by its "reloc/<stage>" ranges
+    under `torch.profiler` on graphs; and each stage entry's capture and
+    replay (`entry_table`)."""
+    from multi_orb_slam_tpu_torch.reloc import relocalization
+    from multi_orb_slam_tpu_torch.utils import graphs
+
+    out_g, g_ms = host_ms(lambda: relocalization.relocalize(*stash))
+    with graphs.eager():
+        out_e, e1_ms = host_ms(lambda: relocalization.relocalize(*stash))
+        _, e2_ms = host_ms(lambda: relocalization.relocalize(*stash))
+    same = (out_g[0] and out_e[0] and out_g[3] == out_e[3] and torch.equal(out_g[1], out_e[1])
+            and torch.equal(out_g[2], out_e[2]))
+    print(f"  relocalize on the found frame's inputs, host ms on graphs: first call "
+          f"{first_ms:.2f} (the path's, with the captures), again {g_ms:.2f}; under "
+          f"graphs.eager(): {e1_ms:.2f}, again {e2_ms:.2f}; found {out_g[0]} with {out_g[3]} "
+          f"inliers; graphs and eager the same bits (pose, frame map points, count): {same}")
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     rows = collections.defaultdict(
         lambda: {"calls": 0, "host_ms": 0.0, "device_ops": 0, "device_ms": 0.0})
@@ -1283,18 +1379,18 @@ def profile_relocalize(stash):
         relocalization.relocalize(*stash)
         torch.cuda.synchronize()
     n_in, n_all = read_ranges(prof, "reloc/", rows)
-    print(f"  relocalize again on the same inputs: found {ok} with {n} inliers in "
-          f"{plain_ms:.2f} ms unprofiled; under the profiler {n_in} of {n_all} device "
-          f"operations inside a stage:")
+    print(f"  on graphs under the profiler, {n_in} of {n_all} device operations inside a stage "
+          f"(a replay's kernels count where the host sees them):")
     print(f"    {'stage':<16}{'calls':>6}{'host ms, profiled':>19}{'device ops':>12}{'device ms':>11}")
     for name, r in rows.items():
         print(f"    {name:<16}{r['calls']:>6}{r['host_ms']:>19.2f}{r['device_ops']:>12}"
               f"{r['device_ms']:>11.3f}")
-    print(f"    {'all':<16}{'':>6}{sum(r['host_ms'] for r in rows.values()):>19.2f}"
-          f"{sum(r['device_ops'] for r in rows.values()):>12}"
-          f"{sum(r['device_ms'] for r in rows.values()):>11.3f}")
-    if not ok:
-        raise AssertionError("system-reloc: the profiled relocalization did not find the frame")
+    print("  relocalization's graph entries:")
+    entries = entry_table(RELOC_ENTRIES)
+    if not same:
+        raise AssertionError("system-reloc: relocalize on graphs is not the eager call's bits")
+    return {"first_ms": first_ms, "graph_ms": g_ms, "eager_ms": e1_ms, "eager_again_ms": e2_ms,
+            "inliers": out_g[3], "stages": dict(rows), "entries": entries}
 
 
 def phase_system_reloc(frames, poses_gt, calib, cfg):
@@ -1350,6 +1446,7 @@ def phase_system_reloc(frames, poses_gt, calib, cfg):
     sys_.tracker.reloc_cb = reloc_cb
     blank_g = torch.full_like(frames[0][0], 100.0)
     blank_d = torch.zeros_like(frames[0][1])
+    calls0 = entry_calls()
     kernels.reset_launch_counts()
     states, times, blank_at, vocab_at = [], [], [], None
     for i, (g, d) in enumerate(frames):
@@ -1369,6 +1466,7 @@ def phase_system_reloc(frames, poses_gt, calib, cfg):
     traj = sys_.tracker.absolute_trajectory()
     torch.cuda.synchronize()
     launches = dict(kernels.LAUNCHES)
+    replayed = replayed_launches(calls0)
 
     n = len(frames)
     tracked = [i for i, (*_, lost) in enumerate(traj) if not lost]
@@ -1395,7 +1493,7 @@ def phase_system_reloc(frames, poses_gt, calib, cfg):
         print(f"  relocalize at frame {r['frame']}: found {r['ok']}, {r['inliers']} inliers, "
               f"{r['ms']:.2f} ms, {r['candidates']} candidates tried, {r['host_reads']} host "
               f"reads, {r['window_match']} window_match launches")
-    print(f"  kernel launches: {launches}")
+    print(f"  kernel launches: {launches}; of the replays (calls x captures' counts) {replayed}")
     for line in sys_.timing_report().splitlines():
         print(f"    {line}")
     if len(blank_at) != N_BLANK:
@@ -1406,6 +1504,9 @@ def phase_system_reloc(frames, poses_gt, calib, cfg):
     if not found or found[0]["window_match"] < 2:
         raise AssertionError(f"system-reloc: no relocalization succeeded with window_match "
                              f"launched inside it: {relocs}")
+    if found[0]["candidates"] != 1 or found[0]["host_reads"] != 5:
+        raise AssertionError(f"system-reloc: the frame was not found by the first candidate "
+                             f"with 5 host reads: {found[0]}")
     if states[-1] != TrackState.OK or sorted(set(range(n)) - set(tracked)) != blank_at:
         raise AssertionError(f"system-reloc: states {states}, tracked {tracked}")
     if not (last_err < LAST_POSE_LIMIT_M and ate < ATE_LIMIT_M):
@@ -1415,7 +1516,11 @@ def phase_system_reloc(frames, poses_gt, calib, cfg):
     missing = [k for k, v in launches.items() if v <= 0]
     if missing:
         raise AssertionError(f"system-reloc never launched: {missing}")
-    profile_relocalize(stash[0])
+    check_replayed("system-reloc", launches, replayed)
+    split = profile_relocalize(stash[0], found[0]["ms"])
+    print(json.dumps({"reloc_graphs": {
+        "frame": found[0]["frame"], "candidates": found[0]["candidates"],
+        "host_reads": found[0]["host_reads"], "ate_mm": ate * 1e3, **split}}))
 
     # save, load in a fresh System, be found again
     with tempfile.TemporaryDirectory() as tmp:
@@ -1477,23 +1582,14 @@ def loop_scene(dev):
                      th_depth=4.0, local_cap=1024, ba_local_cap=2048,
                      orb=orb.ORBConfig(n_features=512))
     t0 = time.perf_counter()
-    world = synthetic.make_box_world(seed=3, n_points=5000, box=(7.0, 4.0, 7.0))
-    poses = synthetic.circuit_trajectory(LOOP_FRAMES, radius=2.2, laps=1.25)
     Kc, T_rc = np.asarray(LOOP_K, np.float32), calib.T_rc.cpu().numpy()
-    frames = []
-    for i, T in enumerate(poses):
-        s = i / (LOOP_FRAMES - 1)
-        views = [synthetic.render_rgbd(world, Kc, T_rc[c] @ T, LOOP_H, LOOP_W) for c in range(C)]
-        g = np.stack([v[0] for v in views]).astype(np.float32)
-        d = np.stack([v[1] for v in views]).astype(np.float32)
-        if 0.08 <= s < 0.60:     # the depth-scale ramp that makes odometry drift
-            d = d * (1.0 + LOOP_DRIFT * np.sin(np.pi * (s - 0.08) / 0.52))
-        frames.append((torch.from_numpy(g).to(dev), torch.from_numpy(d).to(dev)))
+    frames, poses = synthetic.loop_circuit(Kc, T_rc, LOOP_FRAMES, LOOP_H, LOOP_W, LOOP_DRIFT)
+    frames = [(torch.from_numpy(g).to(dev), torch.from_numpy(d).to(dev)) for g, d in frames]
     torch.cuda.synchronize()
     print(f"loop circuit: {LOOP_FRAMES} frames x {C} cameras at {LOOP_W}x{LOOP_H} rendered in "
           f"{time.perf_counter() - t0:.1f} s (the test's 320x240: the bench's 640x480 circuit-160 "
           f"is not tracked to the end by either package)")
-    return calib, cfg, frames, np.asarray(poses, np.float64)
+    return calib, cfg, frames, poses
 
 
 def loop_vocabulary(frames, cfg):
@@ -1513,18 +1609,102 @@ def loop_vocabulary(frames, cfg):
 
 
 def gba_device_ms(state, calib, cfg):
-    """Device time of one global BA on `state`, summed over its kernels from
+    """Device time of one global BA on `state` (a replay of its graph), from
     `torch.profiler`, and the number of device operations."""
     from multi_orb_slam_tpu_torch.optim import global_ba
 
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=acts) as prof:
-        global_ba.dispatch_global_ba(state, calib, cfg, n_outer=LOOP_GBA_OUTER)
+    return profiled_device(
+        lambda: global_ba.dispatch_global_ba(state, calib, cfg, n_outer=LOOP_GBA_OUTER))
+
+
+def gba_points_apart(arrays, Tcw_ref, pos_ref, pos):
+    """How far a global BA solution's points lie from a reference
+    solution's, in each point's information metric there (H_pp of the
+    problem `arrays` = (state_arrays, calib_arrays), at the reference):
+    (the largest sqrt(dp^T H dp) over the valid points, the largest |dp| in
+    m over those whose smallest H eigenvalue is >= GBA_INFO_FLOOR).  Points
+    that one observation or a short baseline holds slide along their ray
+    with the order of the atomics' sums; the metric weighs that out."""
+    from multi_orb_slam_tpu_torch.optim import global_ba
+
+    H = global_ba.map_point_information(*arrays, Tcw_ref, pos_ref)
+    valid = arrays[0][6]
+    dp, Hv = (pos - pos_ref)[valid].double(), H[valid].double()
+    maha = torch.sqrt(torch.clamp(torch.einsum("ni,nij,nj->n", dp, Hv, dp), min=0.0))
+    held = torch.linalg.eigvalsh(Hv)[:, 0] >= GBA_INFO_FLOOR
+    return float(maha.max()), float(dp[held].abs().max()) if bool(held.any()) else 0.0
+
+
+def loop_graphs_vs_eager(stash, calib, cfg, voc):
+    """The loop keyframe's stages on the inputs the run handed them (copies
+    kept in `stash`), each on a fresh `LoopCloser`, once on graphs (every
+    entry captured by the run: replays) and once under `graphs.eager()`;
+    the pose graph and the global BA twice each, for the spread of their
+    atomics.  Host ms (`_correct_loop` and the dispatch: until they return,
+    and until the card is done), and the results held: `_compute_sim3` and
+    the merge to the bit, the pose graph and `_correct_loop`'s poses within
+    LOOP_POSE_TOL, the global BA's poses within GBA_POSE_TOL and its points
+    in their information metric (`gba_points_apart`).  Returns {mode:
+    {stage: ms}} and the measured differences."""
+    from multi_orb_slam_tpu_torch.loop import loop_closing
+    from multi_orb_slam_tpu_torch.optim import global_ba, pose_graph
+    from multi_orb_slam_tpu_torch.utils import graphs
+
+    def closer():
+        lc = loop_closing.LoopCloser(calib, cfg)
+        lc.voc, lc.loop_pairs = voc, list(stash["loop_pairs"])
+        return lc
+
+    def enqueue_ms(fn):
         torch.cuda.synchronize()
-    cpu = torch.autograd.DeviceType.CPU
-    kernels = [k for e in prof.events() if e.device_type == cpu for k in e.kernels]
-    return sum(k.duration for k in kernels) / 1e3, len(kernels)
+        t = time.perf_counter()
+        out = fn()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        return out, (t1 - t) * 1e3, (time.perf_counter() - t) * 1e3
+
+    out, ms = {}, {}
+    for mode in ("graphs", "eager"):
+        with graphs.eager() if mode == "eager" else contextlib.nullcontext():
+            r, m = {}, {}
+            r["compute_sim3"], m["compute_sim3"] = host_ms(
+                lambda: closer()._compute_sim3(*stash["compute"]))
+            r["correct_loop"], m["correct_loop"], m["correct_loop_done"] = enqueue_ms(
+                lambda: closer()._correct_loop(*stash["correct"]))
+            for key in ("pose_graph", "pose_graph_again"):
+                r[key], m[key] = host_ms(
+                    lambda: pose_graph.optimize_essential_graph(*stash["pose_graph"]))
+            for key in ("dispatch_global_ba", "dispatch_again"):
+                r[key], m[key], m[key + "_done"] = enqueue_ms(
+                    lambda: global_ba.dispatch_global_ba(*stash["dispatch"],
+                                                         n_outer=LOOP_GBA_OUTER))
+            r["merge"], m["merge"] = host_ms(lambda: loop_closing.merge_gba(*stash["merge"]))
+        out[mode], ms[mode] = r, m
+
+    def diff(a, b):
+        return float((a - b).abs().max())
+
+    g, e = out["graphs"], out["eager"]
+    arrays = global_ba.global_ba_arrays(*stash["dispatch"])[:2]
+    gba_e, gba_g, gba_e2 = (e["dispatch_global_ba"], g["dispatch_global_ba"],
+                            e["dispatch_again"])
+    maha, held_m = gba_points_apart(arrays, *gba_e, gba_g[1])
+    maha_e, held_e = gba_points_apart(arrays, *gba_e, gba_e2[1])
+    d = {
+        "compute_sim3_same_bits": (g["compute_sim3"][0] == e["compute_sim3"][0]
+                                   and g["compute_sim3"][2] == e["compute_sim3"][2]
+                                   and torch.equal(g["compute_sim3"][1], e["compute_sim3"][1])),
+        "merge_same_bits": all(torch.equal(x, y) for x, y in zip(g["merge"], e["merge"])),
+        "pose_graph": diff(g["pose_graph"], e["pose_graph"]),
+        "pose_graph_eager_spread": diff(e["pose_graph"], e["pose_graph_again"]),
+        "pose_graph_graph_spread": diff(g["pose_graph"], g["pose_graph_again"]),
+        "correct_loop_poses": diff(g["correct_loop"].kf_Tcw, e["correct_loop"].kf_Tcw),
+        "gba_poses": diff(gba_g[0], gba_e[0]),
+        "gba_points_mahalanobis": maha, "gba_held_points_m": held_m,
+        "gba_eager_spread_poses": diff(gba_e2[0], gba_e[0]),
+        "gba_eager_spread_points_mahalanobis": maha_e, "gba_eager_spread_held_points_m": held_e,
+    }
+    return ms, d
 
 
 def phase_system_loop(dev):
@@ -1536,6 +1716,7 @@ def phase_system_loop(dev):
     from multi_orb_slam_tpu_torch.ops import kernels
     from multi_orb_slam_tpu_torch.optim import global_ba, pose_graph
     from multi_orb_slam_tpu_torch.placerec import database
+    from multi_orb_slam_tpu_torch.utils import graphs
 
     calib, cfg, frames, poses_gt = loop_scene(dev)
     print(f"system-loop: System(DUAL_RGBD) on the card, unpipelined, mapping and loop closing "
@@ -1575,19 +1756,42 @@ def phase_system_loop(dev):
         return out
 
     merge = lc.merge_pending_gba
+    # copies of the inputs of the loop keyframe's stages, for the graphs
+    # against eager split after the run
+    stash = {}
+
+    def stashed(key, fn, when=lambda out: True):
+        def inner(*a):
+            kept = graphs.clone(a) if key not in stash else None
+            pairs = list(lc.loop_pairs)
+            out = fn(*a)
+            if kept is not None and when(out):
+                stash[key] = kept
+                if key == "correct":
+                    stash["loop_pairs"] = pairs
+                if key == "compute":
+                    stash["frame"] = sys_.tracker.frame_id
+            return out
+        return inner
 
     def merge_timed(state):
         if lc._gba_pending is None:
             return merge(state)
+        if "merge" not in stash:
+            stash["merge"] = graphs.clone((state,) + lc._gba_pending)
         return timed("merge_pending_gba", merge)(state)
 
-    lc._compute_sim3 = timed("compute_sim3", lc._compute_sim3)
+    lc._compute_sim3 = stashed("compute", timed("compute_sim3", lc._compute_sim3),
+                               when=lambda out: out is not None)
     # host time until it returns: the global BA at its end is only enqueued
-    lc._correct_loop = timed("correct_loop", lc._correct_loop, sync_after=False)
+    lc._correct_loop = stashed("correct", timed("correct_loop", lc._correct_loop,
+                                                sync_after=False))
     lc.merge_pending_gba = merge_timed
     patched = [(pose_graph, "optimize_essential_graph",
-                timed("pose_graph", pose_graph.optimize_essential_graph)),
-               (global_ba, "dispatch_global_ba", dispatch)]
+                stashed("pose_graph", timed("pose_graph", pose_graph.optimize_essential_graph))),
+               (global_ba, "dispatch_global_ba",
+                lambda st, cal, cf, n_outer: stashed("dispatch", lambda *a: dispatch(
+                    *a, n_outer=n_outer))(st, cal, cf))]
     originals = [(mod, name, getattr(mod, name)) for mod, name, _ in patched]
     for mod, name, fn in patched:
         setattr(mod, name, fn)
@@ -1600,6 +1804,7 @@ def phase_system_loop(dev):
         return on_keyframe(kf_slot)
 
     sys_.tracker.kf_inserted_cb = kf_cb
+    calls0 = entry_calls()
     try:
         kernels.reset_launch_counts()
         for i, (g, d) in enumerate(frames):
@@ -1613,6 +1818,7 @@ def phase_system_loop(dev):
         traj = sys_.tracker.absolute_trajectory()
         torch.cuda.synchronize()
         launches = dict(kernels.LAUNCHES)
+        replayed = replayed_launches(calls0)
     finally:
         for mod, name, fn in originals:
             setattr(mod, name, fn)
@@ -1656,7 +1862,7 @@ def phase_system_loop(dev):
           f"shutdown(); ATE over all {len(traj)} frames {ate:.4f} m, last pose {last_err:.4f} m "
           f"from ground truth")
     print(f"  window_match launches by loop role: {roles}")
-    print(f"  kernel launches: {launches}")
+    print(f"  kernel launches: {launches}; of the replays (calls x captures' counts) {replayed}")
     for line in sys_.timing_report().splitlines():
         print(f"    {line}")
 
@@ -1669,17 +1875,64 @@ def phase_system_loop(dev):
         Tcw_g, pos_g = global_ba.dispatch_global_ba(copy, calib, cfg, n_outer=LOOP_GBA_OUTER)
     finally:
         torch.cuda.set_sync_debug_mode(0)
-    host_ms = (time.perf_counter() - t) * 1e3
+    return_ms = (time.perf_counter() - t) * 1e3
     torch.cuda.synchronize()
     done_ms = (time.perf_counter() - t) * 1e3
     finite = bool(torch.isfinite(Tcw_g).all() and torch.isfinite(pos_g[copy.mp_valid]).all())
     dev_ms, n_ops = gba_device_ms(copy, calib, cfg)
     print(f"  dispatch_global_ba under torch.cuda.set_sync_debug_mode('error'): no host "
-          f"synchronisation; returned after {host_ms:.2f} ms of host time, done on the device "
+          f"synchronisation; returned after {return_ms:.2f} ms of host time, done on the device "
           f"{done_ms:.2f} ms after the call; result finite {finite}; under torch.profiler "
           f"{n_ops} device operations, {dev_ms:.3f} ms of device time")
 
+    # the loop keyframe's stages again, on graphs and eagerly
+    first = {name: next((r["ms"] for r in stages[name] if r["frame"] >= stash["frame"]), None)
+             for name in ("compute_sim3", "correct_loop", "pose_graph", "dispatch_global_ba",
+                          "merge_pending_gba")}
+    split_ms, held = loop_graphs_vs_eager(stash, calib, cfg, voc)
+    print(f"  the loop keyframe (frame {stash['frame']}) again on its inputs, host ms: first "
+          f"call in the run (on graphs, with the captures of the entries first used there) / "
+          f"replay / graphs.eager()")
+    for name, key in (("compute_sim3", "compute_sim3"), ("correct_loop", "correct_loop"),
+                      ("pose_graph", "pose_graph"), ("dispatch_global_ba", "dispatch_global_ba"),
+                      ("merge_pending_gba", "merge")):
+        done = (f" (card done {split_ms['graphs'][key + '_done']:.2f} / "
+                f"{split_ms['eager'][key + '_done']:.2f})" if key + "_done" in split_ms["graphs"]
+                else "")
+        f_ms = first[name]
+        print(f"    {name:<20}{f_ms if f_ms is not None else float('nan'):>10.2f}"
+              f"{split_ms['graphs'][key]:>10.2f}{split_ms['eager'][key]:>10.2f}{done}")
+    print(f"  graphs against eager: _compute_sim3 the same bits {held['compute_sim3_same_bits']}, "
+          f"the merge the same bits {held['merge_same_bits']}; pose graph "
+          f"{held['pose_graph']:.3e} (two eager calls {held['pose_graph_eager_spread']:.3e} apart, "
+          f"two replays {held['pose_graph_graph_spread']:.3e}), _correct_loop's poses "
+          f"{held['correct_loop_poses']:.3e} (tolerance {LOOP_POSE_TOL:.0e}); global BA poses "
+          f"{held['gba_poses']:.3e} (tolerance {GBA_POSE_TOL:.0e}), points "
+          f"{held['gba_points_mahalanobis']:.4f} sigma at most (tolerance {GBA_MAHALANOBIS}), "
+          f"those with H_pp >= {GBA_INFO_FLOOR:.0f} m^-2 within {held['gba_held_points_m']:.3e} m "
+          f"(1e-3); two eager calls {held['gba_eager_spread_poses']:.3e}, "
+          f"{held['gba_eager_spread_points_mahalanobis']:.4f} sigma, "
+          f"{held['gba_eager_spread_held_points_m']:.3e} m apart")
+    print("  the loop's graph entries:")
+    entries = entry_table(LOOP_ENTRIES)
+    closed = [v for v in lc.verifications if v["accepted"]]
+    print(json.dumps({"loop_graphs": {
+        "loop": closed[0] if closed else None, "ate_m": ate, "frames": len(traj),
+        "lost": len(lost), "first_ms": first, "ms": split_ms, "held": held,
+        "entries": entries}}))
+
     failures = []
+    if not (held["compute_sim3_same_bits"] and held["merge_same_bits"]):
+        failures.append("_compute_sim3 or the merge on graphs is not the eager call's bits")
+    if not (max(held["pose_graph"], held["correct_loop_poses"]) <= LOOP_POSE_TOL
+            and held["gba_poses"] <= GBA_POSE_TOL
+            and held["gba_points_mahalanobis"] <= GBA_MAHALANOBIS
+            and held["gba_held_points_m"] <= 1e-3):
+        failures.append(f"graphs against eager beyond the tolerances: {held}")
+    try:
+        check_replayed("system-loop", launches, replayed)
+    except AssertionError as e:
+        failures.append(str(e))
     if len(lost) > LOOP_MAX_LOST:
         failures.append(f"{len(lost)} of {len(traj)} frames lost")
     if lc.n_loops_closed < 1 or lc.n_gba_merged < 1:

@@ -1,11 +1,103 @@
 """Closed-form point-set alignment (Umeyama) and trajectory ATE.
 
-Counterpart of `multi_orb_slam_tpu/geometry/align.py`.
+Counterpart of `multi_orb_slam_tpu/geometry/align.py`.  `umeyama` takes the
+rotation from an SVD, as the reference does.  `umeyama_quat` solves the same
+problem with no SVD, for the RANSAC solvers that run inside CUDA graphs:
+`torch.linalg.svd` reads its convergence flags back to the host, which a
+graph's capture refuses.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
+
+from ..utils import graphs
+from . import se3
+
+# the (p, q) pairs of one cyclic Jacobi sweep over a symmetric 4x4 matrix
+_PAIRS = ((0, 1), (0, 2), (0, 3), (1, 2), (1, 3), (2, 3))
+JACOBI_SWEEPS = 5
+
+
+@functools.lru_cache(maxsize=None)
+def _rotation_basis(dtype: torch.dtype, device: torch.device):
+    """Per Jacobi pair k: (E_pp + E_qq, E_pq - E_qp), [6, 4, 4] each, filled
+    in on the device once (a constant, never a copy from the host)."""
+    diag, skew = [], []
+    for p, q in _PAIRS:
+        d = [[0.0] * 4 for _ in range(4)]
+        o = [[0.0] * 4 for _ in range(4)]
+        d[p][p] = d[q][q] = 1.0
+        o[p][q], o[q][p] = 1.0, -1.0
+        diag += [v for row in d for v in row]
+        skew += [v for row in o for v in row]
+    return (graphs.filled(diag, dtype, device).reshape(6, 4, 4),
+            graphs.filled(skew, dtype, device).reshape(6, 4, 4))
+
+
+def top_eigenvector_4(N: torch.Tensor, sweeps: int = JACOBI_SWEEPS) -> torch.Tensor:
+    """Unit eigenvector (..., 4) of the largest eigenvalue of symmetric
+    (..., 4, 4) matrices: `sweeps` cyclic Jacobi sweeps (each rotation
+    zeroes one off-diagonal pair; quadratic convergence), then the column of
+    the largest diagonal entry, the lowest among equals.  A fixed trip count
+    and no `torch.linalg` call, so nothing is read back to the host."""
+    D, O = _rotation_basis(N.dtype, N.device)
+    A = N
+    eye = torch.eye(4, dtype=N.dtype, device=N.device)
+    V = eye.expand(N.shape)
+    for _ in range(sweeps):
+        for k, (p, q) in enumerate(_PAIRS):
+            app, aqq, apq = A[..., p, p], A[..., q, q], A[..., p, q]
+            nz = apq != 0
+            tau = (aqq - app) / (2.0 * torch.where(nz, apq, 1.0))
+            t = torch.where(tau >= 0, 1.0, -1.0) / (torch.abs(tau) + torch.sqrt(1.0 + tau * tau))
+            t = torch.where(nz, t, 0.0)
+            c = torch.rsqrt(1.0 + t * t)
+            s = t * c
+            J = eye + (c - 1.0)[..., None, None] * D[k] + s[..., None, None] * O[k]
+            A = J.transpose(-1, -2) @ A @ J
+            V = V @ J
+    best = (-torch.diagonal(A, dim1=-2, dim2=-1)).argmin(dim=-1, keepdim=True)
+    return torch.gather(V, -1, best[..., None, :].expand(V.shape[:-1] + (1,)))[..., 0]
+
+
+def umeyama_quat(src: torch.Tensor, dst: torch.Tensor,
+                 weights: torch.Tensor | None = None, with_scale: bool = True):
+    """`umeyama`'s (s, R, t) with the rotation from Horn's unit-quaternion
+    form of the same least-squares problem: R maximises trace(R^T cov) over
+    proper rotations, so it is Umeyama's reflection-corrected rotation, here
+    the eigenvector of the largest eigenvalue of a symmetric 4x4 matrix
+    (`top_eigenvector_4`).  The scale is trace(R^T cov) / var(src), which is
+    Umeyama's sum(D * S) / var(src)."""
+    if weights is None:
+        weights = torch.ones(src.shape[:-1], dtype=src.dtype, device=src.device)
+    w = weights[..., None]
+    wsum = torch.clamp(torch.sum(weights, dim=-1, keepdim=True), min=1e-9)
+    mu_src = torch.sum(src * w, dim=-2) / wsum
+    mu_dst = torch.sum(dst * w, dim=-2) / wsum
+    src_c = src - mu_src[..., None, :]
+    dst_c = dst - mu_dst[..., None, :]
+    cov = torch.einsum("...n,...ni,...nj->...ij", weights, dst_c, src_c) / wsum[..., None]
+    S = cov.transpose(-1, -2)            # S[a, b] = sum w src_a dst_b (Horn's M)
+    sxx, sxy, sxz = S[..., 0, 0], S[..., 0, 1], S[..., 0, 2]
+    syx, syy, syz = S[..., 1, 0], S[..., 1, 1], S[..., 1, 2]
+    szx, szy, szz = S[..., 2, 0], S[..., 2, 1], S[..., 2, 2]
+    N = torch.stack([
+        torch.stack([sxx + syy + szz, syz - szy, szx - sxz, sxy - syx], -1),
+        torch.stack([syz - szy, sxx - syy - szz, sxy + syx, szx + sxz], -1),
+        torch.stack([szx - sxz, sxy + syx, syy - sxx - szz, syz + szy], -1),
+        torch.stack([sxy - syx, szx + sxz, syz + szy, szz - sxx - syy], -1)], -2)
+    q = top_eigenvector_4(N)             # (w, x, y, z)
+    R = se3.from_quaternion(torch.cat([q[..., 1:], q[..., :1]], dim=-1))
+    if with_scale:
+        var_src = torch.sum(weights * torch.sum(src_c * src_c, dim=-1), dim=-1) / wsum[..., 0]
+        s = torch.sum(R * cov, dim=(-2, -1)) / torch.clamp(var_src, min=1e-12)
+    else:
+        s = torch.ones(src.shape[:-2], dtype=src.dtype, device=src.device)
+    t = mu_dst - s[..., None] * (R @ mu_src[..., None])[..., 0]
+    return s, R, t
 
 
 def umeyama(src: torch.Tensor, dst: torch.Tensor,

@@ -25,7 +25,9 @@ _EPS = 1e-8
 
 def pack(s, R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     q = se3.to_quaternion(R)
-    s = torch.as_tensor(s, dtype=t.dtype, device=t.device)
+    # a number is filled in on the device (no copy from the host)
+    s = (s.to(t.device, t.dtype) if isinstance(s, torch.Tensor)
+         else torch.full((), s, dtype=t.dtype, device=t.device))
     batch = torch.broadcast_shapes(s.shape, q.shape[:-1], t.shape[:-1])
     return torch.cat([t.expand(batch + (3,)), q.expand(batch + (4,)),
                       s.expand(batch)[..., None]], dim=-1)
@@ -36,10 +38,15 @@ def unpack(g: torch.Tensor):
 
 
 def identity(dtype=torch.float32, device=None) -> torch.Tensor:
-    g = torch.zeros(8, dtype=dtype, device=device)
-    g[6] = 1.0
-    g[7] = 1.0
-    return g
+    # qw = s = 1 by a comparison on the device: a number written into a
+    # tensor would be a copy from the host
+    return (torch.arange(8, device=device) >= 6).to(dtype)
+
+
+def free_scale_mask(fix_scale: bool, dtype, device) -> torch.Tensor:
+    """[7] tangent mask: 0 on sigma (log-scale) when the scale is fixed,
+    else all ones."""
+    return (torch.arange(7, device=device) < (6 if fix_scale else 7)).to(dtype)
 
 
 def from_se3(T: torch.Tensor, s=None) -> torch.Tensor:

@@ -365,3 +365,25 @@ def make_sequence(
         depths.append(np.stack(ds))
     ts = np.arange(n_frames, dtype=np.float64) / 30.0
     return SyntheticSequence(grays, depths, poses, ts)
+
+
+def loop_circuit(K: np.ndarray, T_rc: np.ndarray, n_frames: int = 240, height: int = 240,
+                 width: int = 320, drift: float = 0.15):
+    """The loop circuit of `tests/test_circuit_e2e.py`: 1.25 laps of a
+    2.2 m circle in a 7 x 4 x 7 m box of 5000 squares (seed 3), every rig
+    camera rendered, depth scaled by up to 1 + `drift` over 8-60% of the
+    run (the ramp that makes odometry drift, so that the loop has something
+    to correct).  Returns (frames: [(grays [C, H, W], depths [C, H, W])]
+    float32, poses [n_frames, 4, 4] world -> rig)."""
+    world = make_box_world(seed=3, n_points=5000, box=(7.0, 4.0, 7.0))
+    poses = circuit_trajectory(n_frames, radius=2.2, laps=1.25)
+    frames = []
+    for i, T in enumerate(poses):
+        s = i / (n_frames - 1)
+        views = [render_rgbd(world, K, T_rc[c] @ T, height, width) for c in range(len(T_rc))]
+        g = np.stack([v[0] for v in views]).astype(np.float32)
+        d = np.stack([v[1] for v in views]).astype(np.float32)
+        if 0.08 <= s < 0.60:
+            d = d * (1.0 + drift * np.sin(np.pi * (s - 0.08) / 0.52))
+        frames.append((g, d))
+    return frames, np.asarray(poses, np.float64)

@@ -25,6 +25,16 @@ range is its word id, a feature's level its word), both directions of
 radius of 8 px, every level open).  Each gives the reference's dense
 Hamming matrix + argmin result.
 
+The functions the reference jits are `graphs.graphed`, one CUDA graph
+replay a call on the card, with the keyframe slots traced (every candidate
+and loop replays the same entries): `sim3_solver.solve_sim3` and
+`search_by_sim3`, `sim3_opt.optimize_sim3`,
+`pose_graph.optimize_essential_graph`, the global BA behind
+`global_ba.dispatch_global_ba` and `merge_gba`; so are the two other
+searches of a candidate with what they count (`word_match_stage`,
+`guided_count_stage`).  Between them the host reads what the reference
+reads: the counts at each gate and the two compactions of matched pairs.
+
 The RANSAC's minimal sets come from `triplet_source(valid, kf_a, kf_b)`: by
 default a `torch.Generator` seeded with kf_a * 1000 + kf_b (the reference
 seeds a JAX key with the same number; the two draw other sets).  A caller
@@ -47,6 +57,7 @@ from ..mapping import fusion, map_state as ms
 from ..ops import hamming, kernels
 from ..optim import global_ba, pose_graph, sim3_opt
 from ..placerec import database as db_mod, vocabulary as vocab_mod
+from ..utils import graphs
 from . import sim3_solver
 
 MIN_MATCHES_BOW = 15      # LoopClosing.cc:372 (SearchByBoW gate)
@@ -138,6 +149,50 @@ def count_guided_matches(uv, proj_ok, q_desc, f_xy, f_valid, f_desc,
     return (bd[0] <= hamming.TH_LOW).sum(dtype=torch.int32)
 
 
+@graphs.graphed()
+def word_match_stage(kf_desc: torch.Tensor, kf_mp: torch.Tensor, kf_feat_valid: torch.Tensor,
+                     voc: vocab_mod.Vocabulary, kf_a, kf_b):
+    """The word-gated match between the map-point features of every rig
+    camera of keyframes `kf_a` and `kf_b` (slots: ints, traced on the
+    card) with Lowe's ratio 0.75 at TH_LOW: (n_matches, best_idx [C*F],
+    ok [C*F]) over the flat [C*F] features of kf_a."""
+    dev = kf_mp.device
+    ra, rb = ms.slot_index(kf_a, dev), ms.slot_index(kf_b, dev)
+    da = kf_desc.index_select(0, ra)[0].reshape(-1, kf_desc.shape[-1])
+    db_ = kf_desc.index_select(0, rb)[0].reshape(-1, kf_desc.shape[-1])
+    has_a = (kf_mp.index_select(0, ra).reshape(-1) >= 0) & kf_feat_valid.index_select(
+        0, ra).reshape(-1)
+    has_b = (kf_mp.index_select(0, rb).reshape(-1) >= 0) & kf_feat_valid.index_select(
+        0, rb).reshape(-1)
+    bi, bd, b2 = word_gated_match(da, has_a, vocab_mod.transform_words(voc, da),
+                                  db_, has_b, vocab_mod.transform_words(voc, db_))
+    ok = (bd <= hamming.TH_LOW) & (bd.to(torch.float32) <= 0.75 * b2.to(torch.float32))
+    return ok.sum(), bi, ok
+
+
+@graphs.graphed(static_argnames=("cfg",))
+def guided_count_stage(state: ms.MapState, kf_a, kf_b, g_ab: torch.Tensor,
+                       calib: cam_mod.CameraParams, cfg: SlamConfig) -> torch.Tensor:
+    """SearchByProjection_cam1-style count of additional agreements:
+    keyframe `kf_b`'s landmarks projected through g_ab into `kf_a`'s camera
+    0 (`count_guided_matches`); slots as in `word_match_stage`."""
+    M = cfg.max_mp
+    dev = g_ab.device
+    ra, rb = ms.slot_index(kf_a, dev), ms.slot_index(kf_b, dev)
+    mp_b = state.kf_mp.index_select(0, rb).reshape(-1)
+    mask_b = ms.scatter_max_bool(M, torch.where(mp_b >= 0, mp_b, M - 1), mp_b >= 0)
+    pts_a_rig = sim3.apply(g_ab, se3.transform_points(state.kf_Tcw.index_select(0, rb)[0],
+                                                      state.mp_pos))
+    uv = cam_mod.project(calib.K[0], pts_a_rig)
+    proj_ok = (mask_b & state.mp_valid & cam_mod.in_image(uv, cfg.width, cfg.height)
+               & (pts_a_rig[:, 2] > 0.1))
+    return count_guided_matches(uv, proj_ok, state.mp_desc,
+                                state.kf_xy_und.index_select(0, ra)[0, 0],
+                                state.kf_feat_valid.index_select(0, ra)[0, 0],
+                                state.kf_desc.index_select(0, ra)[0, 0])
+
+
+@graphs.graphed()
 def merge_gba(state: ms.MapState, Tcw_gba, pos_gba, old_kf, kf_fid_launch,
               old_mp, mp_ff_launch) -> ms.MapState:
     """Fold GBA output (computed from a past map snapshot) into the live map.
@@ -362,7 +417,7 @@ class LoopCloser:
         """Word-gated matching + batched Sim3 RANSAC + refinement against
         each candidate in turn; the first that passes every gate wins.
         Returns (kf_b, g_ab [8], total matches) or None."""
-        C, F = state.kf_desc.shape[1], state.kf_desc.shape[2]
+        F = state.kf_desc.shape[2]
         dev = state.mp_pos.device
         fids = state.kf_frame_id.cpu().numpy()
         fid_a = int(fids[kf_a])
@@ -375,19 +430,13 @@ class LoopCloser:
             # word-gated matching between map-point features of ALL rig
             # cameras: candidate pairs share a vocabulary leaf, as in the
             # reference's SearchByBoW over the full multi-camera feature set
-            da = state.kf_desc[kf_a].reshape(C * F, -1)
-            db_ = state.kf_desc[kf_b].reshape(C * F, -1)
             mp_a_flat = state.kf_mp[kf_a].reshape(-1)
             mp_b_flat = state.kf_mp[kf_b].reshape(-1)
-            has_a = (mp_a_flat >= 0) & state.kf_feat_valid[kf_a].reshape(-1)
-            has_b = (mp_b_flat >= 0) & state.kf_feat_valid[kf_b].reshape(-1)
             before = kernels.LAUNCHES["window_match"]
-            bi, bd, b2 = word_gated_match(
-                da, has_a, vocab_mod.transform_words(self.voc, da),
-                db_, has_b, vocab_mod.transform_words(self.voc, db_))
+            n_matches, bi, ok = word_match_stage(state.kf_desc, state.kf_mp,
+                                                 state.kf_feat_valid, self.voc, kf_a, kf_b)
             _count("word_match", before)
-            ok = (bd <= hamming.TH_LOW) & (bd.to(torch.float32) <= 0.75 * b2.to(torch.float32))
-            rec["bow"] = n_matches = int(ok.sum())
+            rec["bow"] = n_matches = int(n_matches)
             if n_matches < MIN_MATCHES_BOW:
                 continue
             # matched landmark pairs in each RIG frame, with the observing
@@ -478,18 +527,9 @@ class LoopCloser:
         return g_ref, int(n_inl)
 
     def _guided_matches(self, state, kf_a: int, kf_b: int, g_ab) -> int:
-        """SearchByProjection_cam1-style count of additional agreements:
-        kf_b's landmarks projected through g_ab into kf_a's camera 0."""
-        M = self.cfg.max_mp
-        mp_b = state.kf_mp[kf_b].reshape(-1)
-        mask_b = ms.scatter_max_bool(M, torch.where(mp_b >= 0, mp_b, M - 1), mp_b >= 0)
-        pts_a_rig = sim3.apply(g_ab, se3.transform_points(state.kf_Tcw[kf_b], state.mp_pos))
-        uv = cam_mod.project(self.calib.K[0], pts_a_rig)
-        proj_ok = (mask_b & state.mp_valid & cam_mod.in_image(uv, self.cfg.width, self.cfg.height)
-                   & (pts_a_rig[:, 2] > 0.1))
+        """`guided_count_stage`, read back."""
         before = kernels.LAUNCHES["window_match"]
-        n = count_guided_matches(uv, proj_ok, state.mp_desc, state.kf_xy_und[kf_a][0],
-                                 state.kf_feat_valid[kf_a][0], state.kf_desc[kf_a][0])
+        n = guided_count_stage(state, kf_a, kf_b, g_ab, self.calib, self.cfg)
         _count("guided_matches", before)
         return int(n)
 

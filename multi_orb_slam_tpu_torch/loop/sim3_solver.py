@@ -15,6 +15,14 @@ comparison hands both solvers the same triplets.
 
 `search_by_sim3` runs its two directions as ONE `window_match` launch with a
 "camera" per direction.
+
+Both are `graphs.graphed`, as the reference jits them (`solve_sim3_ransac`
+with its draws, `search_by_sim3` with `static_argnums=(5, 6, 7, 8)`): one
+CUDA graph replay a call on the card.  The draws stay outside the graph; the
+two keyframe slots of `search_by_sim3` are traced, so every candidate
+replays one entry.  The closed form is `align.umeyama_quat`, which needs no
+SVD (`torch.linalg.svd` reads its convergence flags back to the host, which
+a capture refuses).
 """
 
 from __future__ import annotations
@@ -23,12 +31,14 @@ import torch
 
 from ..geometry import align, camera as cam_mod, se3, sim3
 from ..mapping import map_state as ms
-from ..ops import hamming, kernels
+from ..ops import hamming, kernels, orb
 from ..reloc.pnp import sample_triplets  # noqa: F401  (the sampler of the RANSAC)
+from ..utils import graphs
 
 N_HYP = 128
 
 
+@graphs.graphed(static_argnames=("fix_scale", "sigma2_px"))
 def solve_sim3(
     tri: torch.Tensor,      # [H, 3] minimal sets (indices into N)
     pts_a: torch.Tensor,    # [N, 3] matched points in frame-a rig coords
@@ -45,7 +55,7 @@ def solve_sim3(
     int32 tensor).  Inlier: both-direction reprojection error below
     9.210 * sigma2_px in the observing camera, in front of it."""
     N = pts_a.shape[0]
-    s, R, t = align.umeyama(pts_b[tri], pts_a[tri], with_scale=not fix_scale)
+    s, R, t = align.umeyama_quat(pts_b[tri], pts_a[tri], with_scale=not fix_scale)
     g = sim3.pack(s, R, t)  # [H, 8] b -> a
     ca, cb = cam_a.long(), cam_b.long()
 
@@ -71,10 +81,12 @@ def solve_sim3(
         return inl.sum(dim=-1, dtype=torch.int32), inl
 
     n_inl, inls = score(g)
-    best = hamming.first_argmin(-n_inl, dim=0)     # first maximum, as `jnp.argmax`
-    g_best, inl_best, n_best = g[best], inls[best], n_inl[best]
+    # first maximum, as `jnp.argmax`; rows taken with `index_select` (indexing
+    # with a 0-dim tensor would read it back to the host)
+    best = hamming.first_argmin(-n_inl, dim=0).reshape(1)
+    g_best, inl_best, n_best = (x.index_select(0, best)[0] for x in (g, inls, n_inl))
     # refine on all inliers (closed form again)
-    s2, R2, t2 = align.umeyama(pts_b, pts_a, weights=inl_best.to(pts_a.dtype),
+    s2, R2, t2 = align.umeyama_quat(pts_b, pts_a, weights=inl_best.to(pts_a.dtype),
                                with_scale=not fix_scale)
     g_ref = sim3.pack(s2, R2, t2)
     n2, inl2 = score(g_ref)
@@ -83,6 +95,7 @@ def solve_sim3(
             torch.maximum(n2, n_best))
 
 
+@graphs.graphed(static_argnames=("max_mp", "scale_factor", "n_levels", "th"))
 def search_by_sim3(
     state: ms.MapState,
     kf_a: int,
@@ -113,17 +126,22 @@ def search_by_sim3(
     M = max_mp
     dev = state.mp_pos.device
     f32, i32 = torch.float32, torch.int32
-    sf = torch.tensor([scale_factor ** lvl for lvl in range(n_levels)], dtype=f32, device=dev)
+    sf = orb.scale_table(scale_factor, n_levels, dev)
+    ra, rb = ms.slot_index(kf_a, dev), ms.slot_index(kf_b, dev)
 
-    mpa = state.kf_mp[kf_a][0]
-    mpb = state.kf_mp[kf_b][0]
+    def row(a, r):
+        # a keyframe's row; `index_select`, as the slot may live on the device
+        return a.index_select(0, r)[0]
+
+    mpa = row(state.kf_mp, ra)[0]
+    mpb = row(state.kf_mp, rb)[0]
     ga = mpa.clamp(0, M - 1).long()
     gb = mpb.clamp(0, M - 1).long()
-    va = (mpa >= 0) & state.kf_feat_valid[kf_a][0] & state.mp_valid[ga]
-    vb = (mpb >= 0) & state.kf_feat_valid[kf_b][0] & state.mp_valid[gb]
+    va = (mpa >= 0) & row(state.kf_feat_valid, ra)[0] & state.mp_valid[ga]
+    vb = (mpb >= 0) & row(state.kf_feat_valid, rb)[0] & state.mp_valid[gb]
 
-    Xa = se3.transform_points(state.kf_Tcw[kf_a], state.mp_pos[ga])   # a landmarks, a-rig
-    Xb = se3.transform_points(state.kf_Tcw[kf_b], state.mp_pos[gb])   # b landmarks, b-rig
+    Xa = se3.transform_points(row(state.kf_Tcw, ra), state.mp_pos[ga])   # a landmarks, a-rig
+    Xb = se3.transform_points(row(state.kf_Tcw, rb), state.mp_pos[gb])   # b landmarks, b-rig
     Xb_in_a = sim3.apply(g_ab, Xb)
     Xa_in_b = sim3.apply(sim3.inverse(g_ab), Xa)
 
@@ -145,9 +163,9 @@ def search_by_sim3(
         q_uv, q_rad, q_lmin.to(i32), q_lmax.to(i32),
         torch.full((2, F), -1e9, dtype=f32, device=dev),
         torch.stack([desc_b, desc_a]).contiguous(),
-        torch.stack([state.kf_xy_und[kf_a][0], state.kf_xy_und[kf_b][0]]).contiguous(),
+        torch.stack([row(state.kf_xy_und, ra)[0], row(state.kf_xy_und, rb)[0]]).contiguous(),
         torch.full((2, F), -1.0, dtype=f32, device=dev),
-        torch.stack([state.kf_level[kf_a][0], state.kf_level[kf_b][0]]).contiguous(),
+        torch.stack([row(state.kf_level, ra)[0], row(state.kf_level, rb)[0]]).contiguous(),
         torch.stack([va, vb]).contiguous(),
         torch.stack([desc_a, desc_b]).contiguous())
     best_a_of_b, best_b_of_a = bi[0].long(), bi[1].long()

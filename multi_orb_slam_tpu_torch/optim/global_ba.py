@@ -16,7 +16,13 @@ preconditioner is `torch.linalg.inv_ex` (no error check), the annealed
 gate's quantile is a sort and a written-out linear interpolation, and the
 loops have fixed trip counts with accept / reject as `torch.where`.  The
 scatters accumulate with atomics on the card, so card and CPU agree to a
-tolerance, not to the bit.
+tolerance, not to the bit (and two calls on the card on the same inputs
+may differ in the last bits).
+
+`run_global_ba_arrays` is `graphs.graphed` (`cfg` and `n_outer` static, as
+the reference's `run_global_ba_jit`): `dispatch_global_ba` enqueues it as
+one CUDA graph replay on the current stream, and its outputs are the
+caller's own copies, which the next replay does not overwrite.
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ import torch
 
 from ..config import SlamConfig, inv_sigma2_of_level
 from ..geometry import se3
+from ..utils import graphs
 from . import residuals
 from .pose_opt import CHI2_MONO, CHI2_STEREO
 
@@ -188,6 +195,32 @@ def schur_lm(kf_Tcw, mp_pos, kf_free, mp_valid, obs_kf, mp_idx, obs_ok, obs_is2,
     return Tcw_all, pos_all, torch.stack(costs)
 
 
+def _flat_problem(kf_valid, kf_mp, obs_uvr, mp_valid, T_rc, K_intr, bf):
+    """The [K, C, F] observations as N flat rows: (obs_kf [N], mp_idx [N],
+    obs_ok [N], residual_state(Tcw, pos, want_jac) as `schur_lm` takes it)."""
+    K, C, F = kf_mp.shape
+    M = mp_valid.shape[0]
+    N = K * C * F
+    dev = kf_mp.device
+    obs_kf = torch.arange(K, device=dev)[:, None, None].expand(K, C, F).reshape(N)
+    obs_mp = kf_mp.reshape(N)
+    uvr = obs_uvr.reshape(K, C, F, 3)
+    mp_idx = obs_mp.clamp(0, M - 1).long()
+    obs_ok = (obs_mp >= 0) & kf_valid[obs_kf] & mp_valid[mp_idx]
+
+    def residual_state(Tcw_all, pos_all, want_jac):
+        # pose and extrinsic enter as [K,1,1] / [1,C,1] broadcasts over
+        # the [K, C, F] layout
+        e, Jc, Jp, is_st, posd = residuals.reproj_residual(
+            Tcw_all[:, None, None], pos_all[mp_idx].reshape(K, C, F, 3),
+            T_rc[None, :, None], K_intr[None, :, None], bf, uvr, want_jac=want_jac)
+        if want_jac:
+            Jc, Jp = Jc.reshape(N, 3, 6), Jp.reshape(N, 3, 3)
+        return e.reshape(N, 3), Jc, Jp, is_st.reshape(N), posd.reshape(N)
+
+    return obs_kf, mp_idx, obs_ok, residual_state
+
+
 def make_global_ba(cfg: SlamConfig):
     """The global BA function for a configuration: `step(kf_Tcw, kf_valid,
     kf_free, kf_mp, obs_uvr, obs_is2, mp_pos, mp_valid, T_rc, K_intr, bf,
@@ -195,32 +228,25 @@ def make_global_ba(cfg: SlamConfig):
 
     def step(kf_Tcw, kf_valid, kf_free, kf_mp, obs_uvr, obs_is2,
              mp_pos, mp_valid, T_rc, K_intr, bf, n_outer, cg_iters):
-        K, C, F = kf_mp.shape
-        M = mp_pos.shape[0]
-        N = K * C * F
-        dev = mp_pos.device
-
-        obs_kf = torch.arange(K, device=dev)[:, None, None].expand(K, C, F).reshape(N)
-        obs_mp = kf_mp.reshape(N)
-        uvr = obs_uvr.reshape(K, C, F, 3)
-        mp_idx = obs_mp.clamp(0, M - 1).long()
-        obs_ok = (obs_mp >= 0) & kf_valid[obs_kf] & mp_valid[mp_idx]
-
-        def residual_state(Tcw_all, pos_all, want_jac):
-            # pose and extrinsic enter as [K,1,1] / [1,C,1] broadcasts over
-            # the [K, C, F] layout
-            e, Jc, Jp, is_st, posd = residuals.reproj_residual(
-                Tcw_all[:, None, None], pos_all[mp_idx].reshape(K, C, F, 3),
-                T_rc[None, :, None], K_intr[None, :, None], bf, uvr, want_jac=want_jac)
-            if want_jac:
-                Jc, Jp = Jc.reshape(N, 3, 6), Jp.reshape(N, 3, 3)
-            return e.reshape(N, 3), Jc, Jp, is_st.reshape(N), posd.reshape(N)
-
+        obs_kf, mp_idx, obs_ok, residual_state = _flat_problem(
+            kf_valid, kf_mp, obs_uvr, mp_valid, T_rc, K_intr, bf)
         Tcw, pos, _ = schur_lm(kf_Tcw, mp_pos, kf_free, mp_valid, obs_kf, mp_idx, obs_ok,
-                               obs_is2.reshape(N), residual_state, n_outer, cg_iters)
+                               obs_is2.reshape(-1), residual_state, n_outer, cg_iters)
         return Tcw, pos
 
     return step
+
+
+def map_point_information(state_arrays, calib_arrays, kf_Tcw, mp_pos) -> torch.Tensor:
+    """[M, 3, 3] H_pp of the global BA's problem on `global_ba_arrays`'
+    (state_arrays, calib_arrays), every valid observation Huber-weighted, at
+    the poses and points given: how well the observations fix each point
+    (`point_information`), the metric to hold two solutions' points in."""
+    (_, kf_valid, kf_mp, obs_uvr, obs_is2, _, mp_valid) = state_arrays
+    _, mp_idx, obs_ok, residual_state = _flat_problem(kf_valid, kf_mp, obs_uvr, mp_valid,
+                                                      *calib_arrays)
+    return point_information(mp_pos, mp_idx, obs_ok, obs_is2.reshape(-1), residual_state,
+                             kf_Tcw)
 
 
 def sorted_quantile(c: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
@@ -267,6 +293,7 @@ def _chi2_gate(kf_Tcw, kf_mp, obs_uvr, obs_is2, mp_pos, T_rc, K_intr, bf,
     return ((chi2 <= th) & posd).reshape(K, C, F)
 
 
+@graphs.graphed(static_argnames=("cfg", "n_outer"))
 def run_global_ba_arrays(state_arrays, calib_arrays, kf_free, cfg: SlamConfig,
                          n_outer: int = 10):
     """The annealed global BA on plain arrays: before each of three stages
@@ -290,22 +317,26 @@ def run_global_ba_arrays(state_arrays, calib_arrays, kf_free, cfg: SlamConfig,
     return Tcw, pos
 
 
+def global_ba_arrays(state, calib, cfg: SlamConfig):
+    """`run_global_ba_arrays`' (state_arrays, calib_arrays, kf_free) of a
+    map: every valid keyframe free but slot 0, invalid feature slots masked
+    out of the problem."""
+    K = state.kf_valid.shape[0]
+    kf_free = state.kf_valid & (torch.arange(K, device=state.kf_valid.device) != 0)
+    obs_uvr = torch.cat([state.kf_xy_und, state.kf_uright[..., None]], dim=-1)
+    obs_is2 = inv_sigma2_of_level(state.kf_level, cfg)
+    kf_mp = torch.where(state.kf_feat_valid, state.kf_mp, -1)
+    return ((state.kf_Tcw, state.kf_valid, kf_mp, obs_uvr, obs_is2, state.mp_pos,
+             state.mp_valid), (calib.T_rc, calib.K, calib.bf), kf_free)
+
+
 def dispatch_global_ba(state, calib, cfg: SlamConfig, n_outer: int = 10):
     """Enqueue full-map BA on the device; return (kf_Tcw, mp_pos), which
     the device fills in later.  No host read: the caller keeps working
     against the old map and folds these in later
     (`LoopCloser.merge_pending_gba`), the counterpart of the reference's
     GBA thread (src/LoopClosing.cc:812)."""
-    K = state.kf_valid.shape[0]
-    kf_free = state.kf_valid & (torch.arange(K, device=state.kf_valid.device) != 0)
-    obs_uvr = torch.cat([state.kf_xy_und, state.kf_uright[..., None]], dim=-1)
-    obs_is2 = inv_sigma2_of_level(state.kf_level, cfg)
-    # mask invalid feature slots out of the problem
-    kf_mp = torch.where(state.kf_feat_valid, state.kf_mp, -1)
-    return run_global_ba_arrays(
-        (state.kf_Tcw, state.kf_valid, kf_mp, obs_uvr, obs_is2,
-         state.mp_pos, state.mp_valid),
-        (calib.T_rc, calib.K, calib.bf), kf_free, cfg, n_outer)
+    return run_global_ba_arrays(*global_ba_arrays(state, calib, cfg), cfg, n_outer)
 
 
 def run_global_ba(state, calib, cfg: SlamConfig, n_outer: int = 10):

@@ -12,7 +12,12 @@ edge batch, which is what `vmap(jacfwd(...))` per edge computes); a dense damped
 with `torch.linalg.solve_ex`.  The blocks are added into a [K*K, 7, 7] view
 with `index_add_`, which accumulates repeated (i, j) pairs as the
 reference's `.at[].add` does (on the card with atomics, so in no fixed
-order).
+order: two calls on the same inputs may differ in the last bits).
+
+`optimize_essential_graph` is `graphs.graphed` (`n_iters` and `fix_scale`
+static, as the reference's `static_argnums=(6, 7)`): one CUDA graph replay
+a call on the card.  `build_essential_edges` pads the edges to `max_edges`,
+so every loop replays one entry.
 """
 
 from __future__ import annotations
@@ -21,8 +26,10 @@ import numpy as np
 import torch
 
 from ..geometry import sim3
+from ..utils import graphs
 
 
+@graphs.graphed(static_argnames=("n_iters", "fix_scale"))
 def optimize_essential_graph(
     g_init: torch.Tensor,     # [K, 8] Sim3 world->kf per slot
     kf_free: torch.Tensor,    # [K] bool (False = fixed, e.g. the loop KF)
@@ -36,9 +43,7 @@ def optimize_essential_graph(
     """Returns optimized [K, 8] Sim3 poses."""
     K, E = g_init.shape[0], e_i.shape[0]
     dev, dtype = g_init.device, g_init.dtype
-    dof = torch.ones(7, dtype=dtype, device=dev)
-    if fix_scale:
-        dof[6] = 0.0
+    dof = sim3.free_scale_mask(fix_scale, dtype, dev)
     ei, ej = e_i.long(), e_j.long()
     w = e_ok.to(dtype)
     pair_ii, pair_jj, pair_ij, pair_ji = ei * K + ei, ej * K + ej, ei * K + ej, ej * K + ei

@@ -18,6 +18,11 @@ Control flow stays on the device, with no host sync per iteration:
   reached a fixed point) runs the round and selects its input with
   `torch.where` -- the skipped round would reproduce the same pose, so
   the result is identical.
+
+`optimize_pose` is `graphs.graphed`, as the reference jits it (`n_rounds`
+and `n_iters` static): relocalization's calls are one CUDA graph replay
+each on the card; inside the tracking graphs and `pnp.pnp_solve` it is
+inlined, as a jit inside a jit.
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ import numpy as np
 import torch
 
 from ..geometry import se3
+from ..utils import graphs
 from . import residuals
 
 CHI2_MONO = 5.991
@@ -44,6 +50,7 @@ class PoseObs(NamedTuple):
     mask: torch.Tensor       # [N] bool valid observation
 
 
+@graphs.graphed(static_argnames=("n_rounds", "n_iters"))
 def optimize_pose(Tcw0: torch.Tensor, obs: PoseObs, T_rc: torch.Tensor,
                   K: torch.Tensor, bf: torch.Tensor, n_rounds: int = 4,
                   n_iters: int = 10):

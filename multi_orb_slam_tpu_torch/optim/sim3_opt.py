@@ -15,6 +15,8 @@ Fixed-capacity [N] edge arrays with masks, Jacobians by forward-mode autodiff
 of the 7-dof tangent (`sim3.jacfwd_batched`) (scale frozen for stereo / RGB-D), the 7x7 normal
 system solved with `torch.linalg.solve_ex` (no host synchronisation); the
 iterations are a fixed loop whose accept / reject is a `torch.where`.
+`optimize_sim3` is `graphs.graphed` (`fix_scale` and the two trip counts
+static, as the reference jits it): one CUDA graph replay a call on the card.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..geometry import sim3
+from ..utils import graphs
 
 CHI2_TH = 10.0  # reference th2, Optimizer.cc:2149
 
@@ -55,6 +58,7 @@ def _project(K, X):
     return torch.stack([u, v], dim=-1), X[..., 2] > 1e-3
 
 
+@graphs.graphed(static_argnames=("fix_scale", "n_iters_first", "n_iters_second"))
 def optimize_sim3(
     g_ab0: torch.Tensor,   # [8] initial Sim3 (b -> a), e.g. from RANSAC
     obs: Sim3Obs,
@@ -96,13 +100,9 @@ def optimize_sim3(
     zero = torch.zeros(7, dtype=dtype, device=dev)
     eye7 = 1e-9 * torch.eye(7, dtype=dtype, device=dev)
     # freeze sigma: a unit row and column with no gradient coupling
-    keep = torch.ones((7, 7), dtype=dtype, device=dev)
-    keep[6, :] = 0.0
-    keep[:, 6] = 0.0
-    unit6 = torch.zeros((7, 7), dtype=dtype, device=dev)
-    unit6[6, 6] = 1.0
-    g_keep = torch.ones(7, dtype=dtype, device=dev)
-    g_keep[6] = 0.0
+    g_keep = sim3.free_scale_mask(True, dtype, dev)
+    keep = g_keep[:, None] * g_keep[None, :]
+    unit6 = torch.diag(1.0 - g_keep)
 
     def lm_phase(g_init, active, n_iters, use_huber):
         def linearize(g):

@@ -159,9 +159,11 @@ def transform_words(voc: Vocabulary, descs: torch.Tensor,
     k = voc.children.shape[1]
     n_nodes = voc.children.shape[0]
     nodes = torch.zeros((n, beam), dtype=torch.int64, device=dev)  # beam of live nodes
-    # invalid beam slots point at node 0 with +inf distance
-    dist = torch.full((n, beam), _BIGD, dtype=torch.int32, device=dev)
-    dist[:, 0] = 0
+    # invalid beam slots point at node 0 with +inf distance (set by a
+    # comparison on the device: a number written in would be a copy from
+    # the host, which a CUDA graph's capture refuses)
+    dist = torch.where(torch.arange(beam, device=dev) == 0, 0, _BIGD).to(
+        torch.int32).expand(n, beam)
     for _ in range(voc.depth):
         ch = voc.children[nodes].long()                    # [N, B, k]
         cd = voc.node_desc[ch.clamp(0, n_nodes - 1)]       # [N, B, k, 8]

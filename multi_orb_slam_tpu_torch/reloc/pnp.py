@@ -14,18 +14,33 @@ draws the minimal sets from an explicit `torch.Generator`, `pnp_solve` takes
 them.  The reference draws its triplets from a JAX key; the two generators
 give other numbers from the same seed, so a comparison hands both solvers
 the same triplets.
+
+`pnp_solve` is `graphs.graphed` (`inlier_px` static): one CUDA graph replay
+a call on the card, where the reference jits `pnp_ransac`.  The draw stays
+outside the graph, on the caller's generator.  The rigid alignment of each
+hypothesis is `align.umeyama_quat`, which needs no SVD: `torch.linalg.svd`
+reads its convergence flags back to the host, which a capture refuses.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
 from ..geometry import align, se3
 from ..ops import hamming
 from ..optim import pose_opt
+from ..utils import graphs
 
 _NEWTON_STARTS = ((1.0, 1.0), (0.5, 1.5), (1.5, 0.5), (2.0, 2.0))
 _NEWTON_STEPS = 12
+
+
+@functools.lru_cache(maxsize=None)
+def _newton_starts(dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """[4, 2] Newton starts (x, y), filled in on the device once."""
+    return graphs.filled([v for xy in _NEWTON_STARTS for v in xy], dtype, device).reshape(4, 2)
 
 
 def _p3p_depths(rays: torch.Tensor, Xw: torch.Tensor):
@@ -50,7 +65,7 @@ def _p3p_depths(rays: torch.Tensor, Xw: torch.Tensor):
         f2 = c2 * (x * x + 1.0 - x * q) - b2 * (x * x + y * y - x * y * r)
         return f1, f2
 
-    starts = torch.tensor(_NEWTON_STARTS, dtype=rays.dtype, device=rays.device)
+    starts = _newton_starts(rays.dtype, rays.device)
     H = rays.shape[0]
     x = starts[:, 0].expand(H, 4).clone()
     y = starts[:, 1].expand(H, 4).clone()
@@ -89,6 +104,7 @@ def sample_triplets(valid: torch.Tensor, n_hyp: int,
     return hamming.top_k(u, 3)[1]
 
 
+@graphs.graphed(static_argnames=("inlier_px",))
 def pnp_solve(
     tri: torch.Tensor,      # [H, 3] indices of the minimal sets
     uv: torch.Tensor,       # [N, 2] undistorted pixel observations (one cam)
@@ -117,7 +133,7 @@ def pnp_solve(
     src = X3[:, None].expand_as(Xc)
     Xc = torch.where(oks[..., None, None], Xc, src)
     # absolute orientation: camera points <- world points
-    _, R, t = align.umeyama(src.reshape(-1, 3, 3), Xc.reshape(-1, 3, 3), with_scale=False)
+    _, R, t = align.umeyama_quat(src.reshape(-1, 3, 3), Xc.reshape(-1, 3, 3), with_scale=False)
     Ts = se3.from_rt(R, t)                           # [4H, 4, 4]
     oks = oks.reshape(-1)
 
@@ -129,9 +145,10 @@ def pnp_solve(
     e2 = (u - uv[:, 0]) ** 2 + (v - uv[:, 1]) ** 2
     inls = valid[None, :] & okz & (e2 < inlier_px)   # [4H, N]
     n_inl = torch.where(oks, inls.sum(dim=-1, dtype=torch.int32), -1)
-    # first maximum wins, as `jnp.argmax`
-    best = hamming.first_argmin(-n_inl, dim=0)
-    T_best, inl_best, n_best = Ts[best], inls[best], n_inl[best]
+    # first maximum wins, as `jnp.argmax`; rows taken with `index_select`
+    # (indexing with a 0-dim tensor would read it back to the host)
+    best = hamming.first_argmin(-n_inl, dim=0).reshape(1)
+    T_best, inl_best, n_best = (x.index_select(0, best)[0] for x in (Ts, inls, n_inl))
     # polish on the inlier set (the reference refines via the Gauss-Newton
     # stage inside EPnP + the follow-up PoseOptimization)
     uvr = torch.cat([uv, -torch.ones((N, 1), dtype=f32, device=dev)], dim=-1)
@@ -149,7 +166,7 @@ def pnp_solve(
 
 def pnp_ransac(generator: torch.Generator, uv, Xw, valid, K,
                n_hyp: int = 256, inlier_px: float = 5.991):
-    """`sample_triplets` then `pnp_solve`: (Tcw [4,4], inliers [N],
-    n_inliers)."""
+    """`sample_triplets` (eager, on `generator`) then `pnp_solve` (one
+    replay on the card): (Tcw [4,4], inliers [N], n_inliers)."""
     return pnp_solve(sample_triplets(valid, n_hyp, generator), uv, Xw, valid, K,
                      inlier_px)

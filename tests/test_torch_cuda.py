@@ -494,23 +494,22 @@ def test_cuda_mapping_step_replays_equal_the_body():
           f"{entry.capture_ms:.1f} ms")
 
 
-@pytest.mark.cuda
-def test_cuda_relocalization_matches_cpu():
+def _on(nt, dev):
+    return type(nt)(*[v.to(dev) if isinstance(v, torch.Tensor) else v for v in nt])
+
+
+@pytest.fixture(scope="module")
+def reloc_scene():
     """A `System` tracks 12 frames of a dual 320x240 rig on the CPU (mapping
-    and the loop stage on, a small online vocabulary).  Its map, vocabulary
-    and database are copied to the card and a later frame, then a blank one,
-    are relocalized on both devices: the same `ok`, the found poses within
-    1 cm of each other (each device draws its own minimal sets) and 5 cm of
-    ground truth, and `window_match` launched twice for the found frame."""
+    and the loop stage on, a small online vocabulary): its map, vocabulary,
+    database, the configuration and the sequence."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from multi_orb_slam_tpu_torch import system as system_mod
     from multi_orb_slam_tpu_torch.config import SlamConfig
-    from multi_orb_slam_tpu_torch.frontend import frame as frame_mod
     from multi_orb_slam_tpu_torch.geometry import camera as cam_mod, se3
     from multi_orb_slam_tpu_torch.io import synthetic
     from multi_orb_slam_tpu_torch.loop import loop_closing
-    from multi_orb_slam_tpu_torch.reloc import relocalization
 
     Hh, Ww, Cc, NF = 240, 320, 2, 512
     cfg = SlamConfig(n_cams=Cc, max_feat=NF, max_kf=32, max_mp=12288, local_cap=2048,
@@ -531,23 +530,34 @@ def test_cuda_relocalization_matches_cpu():
                                                vocab_k=6, vocab_depth=3)
     for g, d in zip(seq.grays[:12], seq.depths[:12]):
         sys_.track_rgbd(g[0], d[0], g[1], d[1])
-    voc, db = sys_.loop_closer.voc, sys_.loop_closer.db
-    assert voc is not None and int(sys_.map.n_kf) >= 4
+    assert sys_.loop_closer.voc is not None and int(sys_.map.n_kf) >= 4
+    return dict(cfg=cfg, calib=calib, seq=seq, map=sys_.map, voc=sys_.loop_closer.voc,
+                db=sys_.loop_closer.db)
 
-    def on(nt, dev):
-        return type(nt)(*[v.to(dev) if isinstance(v, torch.Tensor) else v for v in nt])
 
+@pytest.mark.cuda
+def test_cuda_relocalization_matches_cpu(reloc_scene):
+    """The `reloc_scene` map, vocabulary and database are copied to the card
+    and a later frame, then a blank one, are relocalized on both devices: the
+    same `ok`, the found poses within 1 cm of each other (each device draws
+    its own minimal sets) and 5 cm of ground truth, and `window_match`
+    launched twice for the found frame."""
+    from multi_orb_slam_tpu_torch.frontend import frame as frame_mod
+    from multi_orb_slam_tpu_torch.reloc import relocalization
+
+    cfg, calib, seq = reloc_scene["cfg"], reloc_scene["calib"], reloc_scene["seq"]
     blank = (np.full_like(seq.grays[0], 100.0), np.zeros_like(seq.depths[0]))
     for name, (g, d) in (("frame 15", (seq.grays[15], seq.depths[15])), ("blank", blank)):
         out = {}
         for dev in ("cpu", "cuda"):
-            cal = on(calib, dev)
+            cal = _on(calib, dev)
             fr = frame_mod.build_frame(torch.from_numpy(np.asarray(g, np.float32)).to(dev),
                                        torch.from_numpy(np.asarray(d, np.float32)).to(dev),
                                        cal, cfg.orb)
             before = kernels.LAUNCHES["window_match"]
             ok, Tcw, fmp, n = relocalization.relocalize(
-                on(sys_.map, dev), fr, on(voc, dev), on(db, dev), cal, cfg)
+                _on(reloc_scene["map"], dev), fr, _on(reloc_scene["voc"], dev),
+                _on(reloc_scene["db"], dev), cal, cfg)
             out[dev] = (ok, None if Tcw is None else Tcw.cpu().numpy().astype(np.float64), n,
                         kernels.LAUNCHES["window_match"] - before)
         assert out["cpu"][0] == out["cuda"][0] == (name != "blank"), (name, out)
@@ -559,6 +569,61 @@ def test_cuda_relocalization_matches_cpu():
         gt = np.linalg.inv(seq.poses_gt[15] @ np.linalg.inv(seq.poses_gt[0]))[:3, 3]
         assert np.linalg.norm(c_cpu - c_gpu) < 0.01, (c_cpu, c_gpu)
         assert np.linalg.norm(c_gpu - gt) < 0.05 and abs(out["cpu"][2] - out["cuda"][2]) <= 10
+
+
+RELOC_GRAPHED = ("match_stage", "pnp_solve", "pose_ba_inputs", "optimize_pose", "top_up_stage")
+
+
+def _reloc_stage_args(scene, frame):
+    """The arguments of relocalization's graphed stages for the first
+    candidate of `frame` on the card, each stage's inputs from the eager
+    call of the stage before: {name: (function, arguments)}."""
+    from multi_orb_slam_tpu_torch.frontend import frame as frame_mod
+    from multi_orb_slam_tpu_torch.optim import pose_opt
+    from multi_orb_slam_tpu_torch.placerec import database
+    from multi_orb_slam_tpu_torch.reloc import pnp, relocalization as rl
+    from multi_orb_slam_tpu_torch.utils import graphs
+
+    cfg, seq = scene["cfg"], scene["seq"]
+    cal, st = _on(scene["calib"], "cuda"), _on(scene["map"], "cuda")
+    voc, db = _on(scene["voc"], "cuda"), _on(scene["db"], "cuda")
+    fr = frame_mod.build_frame(torch.from_numpy(seq.grays[frame]).float().cuda(),
+                               torch.from_numpy(seq.depths[frame]).float().cuda(), cal, cfg.orb)
+    kf = int(database.detect_relocalization_candidates(db, voc, st, fr.desc[0], fr.valid[0])[0])
+    out = {"match_stage": (st.kf_desc, st.kf_mp, st.kf_feat_valid, st.mp_valid, st.mp_pos,
+                           fr.desc[0], fr.valid[0], kf)}
+    with graphs.eager():
+        _, mp_of_feat, matched, Xw = rl.match_stage(*out["match_stage"])
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(kf)
+        out["pnp_solve"] = (pnp.sample_triplets(matched, 256, gen), fr.xy_und[0], Xw, matched,
+                            cal.K[0])
+        Tcw0, inl, _ = pnp.pnp_solve(*out["pnp_solve"])
+        out["pose_ba_inputs"] = (matched, inl, mp_of_feat, st.mp_pos, fr, cfg)
+        frame_mp, obs = rl.pose_ba_inputs(*out["pose_ba_inputs"])
+        out["optimize_pose"] = (Tcw0, obs, cal.T_rc, cal.K, cal.bf)
+        Tcw, inlier, _ = pose_opt.optimize_pose(*out["optimize_pose"])
+        out["top_up_stage"] = (st, kf, frame_mp, inlier, Tcw, fr, cal, cfg)
+    fns = {"match_stage": rl.match_stage, "pnp_solve": pnp.pnp_solve,
+           "pose_ba_inputs": rl.pose_ba_inputs, "optimize_pose": pose_opt.optimize_pose,
+           "top_up_stage": rl.top_up_stage}
+    return {name: (fns[name], args) for name, args in out.items()}
+
+
+@pytest.fixture(scope="module")
+def reloc_graph_cases(reloc_scene):
+    """Each of relocalization's graphed stages with the arguments of two
+    frames (15 and 14): {name: (function, arguments a, arguments b)}."""
+    a, b = _reloc_stage_args(reloc_scene, 15), _reloc_stage_args(reloc_scene, 14)
+    return {name: (a[name][0], a[name][1], b[name][1]) for name in RELOC_GRAPHED}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", RELOC_GRAPHED)
+def test_cuda_reloc_graphed_replays_are_the_eager_calls(reloc_graph_cases, name):
+    """Relocalization's graphed stages on two frames' inputs: each replay
+    is the eager call's bits (`_hold_replays`)."""
+    _hold_replays(name, *reloc_graph_cases[name])
 
 
 # ---------------------------------------------------------------------------
@@ -702,13 +767,14 @@ def test_cuda_global_ba_matches_cpu():
 def test_cuda_dispatch_global_ba_reads_nothing_back():
     """The global BA is only enqueued: under
     `torch.cuda.set_sync_debug_mode("error")` no operation of the dispatch
-    synchronises the host with the card."""
+    (its argument build and the replay of its CUDA graph, captured on the
+    first call) synchronises the host with the card."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from multi_orb_slam_tpu_torch.optim import global_ba
 
     st, calib, cfg = _gba_map("cuda")
-    global_ba.dispatch_global_ba(st, calib, cfg, n_outer=3)     # first-use set-up
+    global_ba.dispatch_global_ba(st, calib, cfg, n_outer=9)     # first use: the capture
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -1027,21 +1093,20 @@ def graph_cases():
     return out
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("name", GRAPHED_NAMES)
-def test_cuda_graphed_replays_are_the_eager_calls(graph_cases, name):
-    """Each graphed function of the tracking path on two inputs of one
-    signature (other frames, slots and frame ids): each replay is the same
-    bits as the body called eagerly (`graphs.eager()`), the second replay
-    leaves the first one's outputs intact, both go through one entry, and
-    each replay adds its capture's launches to the counts and nothing
-    more."""
+def _hold_replays(name, fn, args_a, args_b, close=None):
+    """`fn` (graphed) on two inputs of one signature: each replay is the
+    same bits as the body called eagerly (`graphs.eager()`), or, where the
+    body sums with atomics in no fixed order, `close(args, out, eager)`
+    holds (a pass flag and a reading; the reading of two eager calls is
+    printed beside it); the second replay leaves the first one's outputs
+    intact, both go through one entry, and each replay adds its capture's
+    launches to the counts and nothing more."""
     from multi_orb_slam_tpu_torch.utils import graphs
 
-    fn, args_a, args_b = graph_cases[name]
     counts = dict(kernels.LAUNCHES)
     with graphs.eager():
         eager_a, eager_b = fn(*args_a), fn(*args_b)
+        again_a = fn(*args_a) if close is not None else eager_a
     kernels.LAUNCHES.update(counts)
     out_a = fn(*args_a)              # captured on first use
     kept = graphs.clone(out_a)
@@ -1050,15 +1115,31 @@ def test_cuda_graphed_replays_are_the_eager_calls(graph_cases, name):
     kernels.reset_launch_counts()
     out_b = fn(*args_b)
     assert kernels.LAUNCHES == {k: entry.graph_launches.get(k, 0) for k in kernels.LAUNCHES}
-    for a, b in ((out_a, eager_a), (out_b, eager_b), (out_a, kept)):
-        ta, tb = graphs.tensors(a), graphs.tensors(b)
-        assert len(ta) == len(tb) > 0
-        for k, (x, y) in enumerate(zip(ta, tb)):
-            assert torch.equal(x, y), (name, k)
+    for args, a, b in ((args_a, out_a, eager_a), (args_b, out_b, eager_b), (None, out_a, kept)):
+        if close is None or args is None:
+            ta, tb = graphs.tensors(a), graphs.tensors(b)
+            assert len(ta) == len(tb) > 0
+            for k, (x, y) in enumerate(zip(ta, tb)):
+                assert torch.equal(x, y), (name, k)
+        else:
+            ok, reading = close(args, a, b)
+            assert ok, (name, reading)
     assert any(not torch.equal(x, y) for x, y in zip(graphs.tensors(out_a),
                                                      graphs.tensors(out_b)))
-    print(f"{name}: replays the eager bits, warm-up {entry.warmup_ms:.1f} ms, capture "
+    held = ("the eager bits" if close is None else
+            f"the eager call within {close(args_a, out_a, eager_a)[1]} (two eager calls "
+            f"{close(args_a, again_a, eager_a)[1]})")
+    print(f"{name}: replays {held}, warm-up {entry.warmup_ms:.1f} ms, capture "
           f"{entry.capture_ms:.1f} ms, kernels in the graph {entry.graph_launches}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", GRAPHED_NAMES)
+def test_cuda_graphed_replays_are_the_eager_calls(graph_cases, name):
+    """Each graphed function of the tracking path on two inputs of one
+    signature (other frames, slots and frame ids): `_hold_replays`, to the
+    bit."""
+    _hold_replays(name, *graph_cases[name])
 
 
 def _orbit(n):
@@ -1114,3 +1195,222 @@ def test_cuda_system_on_graphs_is_the_eager_system(pipelined):
     np.testing.assert_array_equal(runs["graphs"][1], runs["eager"][1])
     print(f"System(pipelined={pipelined}) orbit-20: keyframes {runs['graphs'][0]}, centres "
           f"the eager run's")
+
+
+# ---------------------------------------------------------------------------
+# the loop stage's graphed functions on the loop circuit
+# ---------------------------------------------------------------------------
+
+LOOP_POSE_TOL = 1e-4       # keyframe poses after the pose graph, graphs against eager
+GBA_POSE_TOL = 1e-3        # after the global BA, as test_cuda_global_ba_matches_cpu
+GBA_INFO_FLOOR = 10.0      # m^-2, GBA_MAHALANOBIS: as the distributed BA's points above
+GBA_MAHALANOBIS = 0.1
+
+
+def _gba_points_apart(arrays, Tcw_ref, pos_ref, pos):
+    """(the largest sqrt(dp^T H_pp dp) over the valid points, the largest
+    |dp| over those whose smallest H_pp eigenvalue is >= GBA_INFO_FLOOR):
+    the points of a global BA solution against a reference one's, H_pp the
+    problem's (`global_ba.map_point_information`) at the reference."""
+    from multi_orb_slam_tpu_torch.optim import global_ba
+
+    H = global_ba.map_point_information(*arrays, Tcw_ref, pos_ref)
+    valid = arrays[0][6]
+    dp, Hv = (pos - pos_ref)[valid].double(), H[valid].double()
+    maha = torch.sqrt(torch.clamp(torch.einsum("ni,nij,nj->n", dp, Hv, dp), min=0.0))
+    held = torch.linalg.eigvalsh(Hv)[:, 0] >= GBA_INFO_FLOOR
+    return float(maha.max()), float(dp[held].abs().max()) if bool(held.any()) else 0.0
+
+
+def _poses_close(args, out, ref):
+    d = float((out - ref).abs().max())
+    return d <= LOOP_POSE_TOL, f"{d:.3e} (tolerance {LOOP_POSE_TOL:.0e})"
+
+
+def _gba_close(args, out, ref):
+    """The global BA's poses within GBA_POSE_TOL and its points in their
+    information metric: float `index_add_` sums in no fixed order on the
+    card, and a point that one observation holds slides along its ray."""
+    d = float((out[0] - ref[0]).abs().max())
+    maha, held = _gba_points_apart(args[:2], ref[0], ref[1], out[1])
+    ok = d <= GBA_POSE_TOL and maha <= GBA_MAHALANOBIS and held <= 1e-3
+    return ok, f"poses {d:.3e}, points {maha:.4f} sigma, well-held points {held:.3e} m"
+
+
+LOOP_GRAPHED = {   # name: (module path, check: None = bit-equal)
+    "word_match_stage": ("loop.loop_closing", None),
+    "solve_sim3": ("loop.sim3_solver", None),
+    "search_by_sim3": ("loop.sim3_solver", None),
+    "optimize_sim3": ("optim.sim3_opt", None),
+    "guided_count_stage": ("loop.loop_closing", None),
+    "optimize_essential_graph": ("optim.pose_graph", _poses_close),
+    "run_global_ba_arrays": ("optim.global_ba", _gba_close),
+    "merge_gba": ("loop.loop_closing", None),
+}
+
+
+def _loop_circuit_system():
+    """The loop circuit (`synthetic.loop_circuit`, the rig of `bench.py`) and
+    a `System(DUAL_RGBD)` on the card with loop closing and global BA, its
+    vocabulary trained from camera 0 of every 8th frame."""
+    from multi_orb_slam_tpu_torch import system
+    from multi_orb_slam_tpu_torch.config import SlamConfig
+    from multi_orb_slam_tpu_torch.geometry import camera as cam_mod, se3
+    from multi_orb_slam_tpu_torch.io import synthetic
+    from multi_orb_slam_tpu_torch.placerec import database, vocabulary
+
+    T_rc1 = torch.eye(4)
+    T_rc1[:3, :3] = se3.so3_exp(torch.tensor([0.0, np.pi / 2, 0.0]))
+    T_rc1[:3, 3] = torch.tensor([0.161, 0.004, -0.071])
+    K = np.array([260.0, 260.0, 160.0, 120.0], np.float32)
+    calib = cam_mod.CameraParams(
+        K=torch.from_numpy(K).repeat(2, 1), dist=torch.zeros((2, 5)),
+        T_rc=torch.stack([torch.eye(4), T_rc1]), bf=torch.tensor(20.0), width=320, height=240)
+    cfg = SlamConfig(n_cams=2, max_feat=512, width=320, height=240, max_frames_kf=12,
+                     th_depth=4.0, local_cap=1024, ba_local_cap=2048,
+                     orb=orb.ORBConfig(n_features=512))
+    frames, _ = synthetic.loop_circuit(K, calib.T_rc.numpy())
+    frames = [(torch.from_numpy(g).cuda(), torch.from_numpy(d).cuda()) for g, d in frames]
+    feats = [orb.extract_orb(frames[i][0][0], cfg.orb) for i in range(0, len(frames), 8)]
+    voc = vocabulary.build_vocabulary(
+        np.concatenate([f.desc[f.valid].cpu().numpy() for f in feats]), k=10, depth=4, iters=3)
+    slam = system.System(sensor=system.Sensor.DUAL_RGBD, calib=calib, cfg=cfg)
+    slam.loop_closer.voc = voc
+    slam.loop_closer.db = database.make_empty_db(cfg.max_kf, voc.n_words)
+    return slam, frames
+
+
+@pytest.fixture(scope="module")
+def loop_run():
+    """The loop circuit on graphs up to the keyframe that merges the first
+    loop's global BA: the arguments of the first call of each of the loop's
+    graphed functions (copies), and the loop keyframe's `_compute_sim3` and
+    `_correct_loop` inputs with the loop pairs from before it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import importlib
+    import inspect
+
+    from multi_orb_slam_tpu_torch.utils import graphs
+
+    slam, frames = _loop_circuit_system()
+    lc = slam.loop_closer
+    calls, stash, patched = {}, {}, []
+    for name, (mod, _) in LOOP_GRAPHED.items():
+        module = importlib.import_module(f"multi_orb_slam_tpu_torch.{mod}")
+        fn = getattr(module, name)
+
+        def record(*args, _fn=fn, _name=name, **kwargs):
+            bound = inspect.signature(_fn).bind(*args, **kwargs)
+            calls.setdefault(_name, (_fn, graphs.clone(tuple(bound.args))))
+            return _fn(*args, **kwargs)
+
+        patched.append((module, name, fn))
+        setattr(module, name, record)
+    compute, correct = lc._compute_sim3, lc._correct_loop
+
+    def compute_rec(state, kf_a, candidates):
+        out = compute(state, kf_a, candidates)
+        if out is not None and "compute" not in stash:
+            stash["compute"] = (graphs.clone(state), kf_a, list(candidates))
+        return out
+
+    def correct_rec(state, kf_a, kf_b, g_ab):
+        if "correct" not in stash:
+            stash["correct"] = (graphs.clone(state), kf_a, kf_b, g_ab.clone())
+            stash["loop_pairs"] = list(lc.loop_pairs)
+        return correct(state, kf_a, kf_b, g_ab)
+
+    lc._compute_sim3, lc._correct_loop = compute_rec, correct_rec
+    try:
+        for i, (g, d) in enumerate(frames):
+            slam.track_rgbd(g[0], d[0], g[1], d[1], timestamp=i / 30.0)
+            if lc.n_gba_merged:
+                break
+    finally:
+        for module, name, fn in patched:
+            setattr(module, name, fn)
+    assert lc.n_gba_merged == 1 and set(calls) == set(LOOP_GRAPHED), (i, set(calls))
+    return dict(calls=calls, stash=stash, calib=slam.calib, cfg=slam.cfg, voc=lc.voc)
+
+
+def _perturbed_loop_args(name, args):
+    """Other inputs of one signature: a moved Sim3, hypothesis points,
+    starting poses or points, or GBA result."""
+    from multi_orb_slam_tpu_torch.geometry import sim3
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    a = list(args)
+
+    def moved(g, size):
+        xi = torch.zeros(g.shape[:-1] + (7,), device="cuda")
+        xi[..., :6] = size * torch.randn(g.shape[:-1] + (6,), generator=gen, device="cuda")
+        return sim3.compose(sim3.exp(xi), g)
+
+    if name == "word_match_stage":          # another keyframe pair
+        a[5] = a[5] + 1 if a[5] + 1 != a[4] else a[5] + 2
+    elif name == "solve_sim3":
+        a[2] = a[2] + 0.01 * torch.randn(a[2].shape, generator=gen, device="cuda")
+    elif name in ("search_by_sim3", "guided_count_stage"):
+        a[3] = moved(a[3], 0.2)
+    elif name == "optimize_sim3":
+        a[0] = moved(a[0], 0.02)
+    elif name == "optimize_essential_graph":
+        a[0] = torch.where(a[1][:, None], moved(a[0], 0.01), a[0])
+    elif name == "run_global_ba_arrays":
+        st = list(a[0])
+        st[5] = st[5] + 0.01 * torch.randn(st[5].shape, generator=gen, device="cuda")
+        a[0] = tuple(st)
+    else:                                    # merge_gba
+        a[2] = a[2] + 0.01
+    return tuple(a)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(LOOP_GRAPHED))
+def test_cuda_loop_graphed_replays_are_the_eager_calls(loop_run, name):
+    """Each of the loop's graphed functions on the arguments of its first
+    call in the circuit and on moved ones (`_perturbed_loop_args`): each
+    replay is the eager call's bits, or within the stated tolerance where
+    float `index_add_` sums in no fixed order (the pose graph's poses to
+    1e-4; the global BA's poses to 1e-3 and its points in their information
+    metric, `_gba_close`), with two eager calls' spread printed beside it."""
+    fn, args = loop_run["calls"][name]
+    _hold_replays(name, fn, args, _perturbed_loop_args(name, args), LOOP_GRAPHED[name][1])
+
+
+@pytest.mark.cuda
+def test_cuda_loop_keyframe_on_graphs_is_the_eager_run(loop_run):
+    """The loop keyframe's `_compute_sim3` and `_correct_loop` (global BA
+    dispatched) and the merge of that BA, on graphs and under
+    `graphs.eager()`, each on a fresh `LoopCloser`: the same loop keyframe,
+    total and Sim3 bits, the same fused observations, the corrected poses
+    within LOOP_POSE_TOL, the merged map's poses and points as
+    `_gba_close` holds a global BA's (the pose graph and the global BA sum
+    with atomics)."""
+    import contextlib
+
+    from multi_orb_slam_tpu_torch.loop import loop_closing
+    from multi_orb_slam_tpu_torch.optim import global_ba
+    from multi_orb_slam_tpu_torch.utils import graphs
+
+    stash = loop_run["stash"]
+    runs = {}
+    for mode in ("graphs", "eager"):
+        lc = loop_closing.LoopCloser(loop_run["calib"], loop_run["cfg"])
+        lc.voc, lc.loop_pairs = loop_run["voc"], list(stash["loop_pairs"])
+        with graphs.eager() if mode == "eager" else contextlib.nullcontext():
+            found = lc._compute_sim3(*stash["compute"])
+            corrected = lc._correct_loop(*stash["correct"])
+            merged = lc.merge_pending_gba(corrected)
+        runs[mode] = (found, corrected, merged)
+    (fg, cg, mg), (fe, ce, me) = runs["graphs"], runs["eager"]
+    assert fg is not None and fg[0] == fe[0] and fg[2] == fe[2] and torch.equal(fg[1], fe[1])
+    assert torch.equal(cg.kf_mp, ce.kf_mp) and torch.equal(cg.mp_valid, ce.mp_valid)
+    d_pose = float((cg.kf_Tcw - ce.kf_Tcw).abs().max())
+    arrays = global_ba.global_ba_arrays(me, loop_run["calib"], loop_run["cfg"])[:2]
+    ok, reading = _gba_close(arrays, (mg.kf_Tcw, mg.mp_pos), (me.kf_Tcw, me.mp_pos))
+    print(f"loop keyframe: kf_b {fg[0]}, total {fg[2]}; graphs against eager: poses after the "
+          f"pose graph {d_pose:.3e}; after the merge {reading}")
+    assert d_pose <= LOOP_POSE_TOL and ok, (d_pose, reading)

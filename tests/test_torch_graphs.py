@@ -82,6 +82,42 @@ def _equal(a, b):
     return len(ta) == len(tb) and all(torch.equal(x, y) for x, y in zip(ta, tb))
 
 
+def assert_pure(fn, args):
+    """`fn(*args)` leaves its inputs bit-unchanged (a capture's warm-up
+    runs the body on the buffers, so an update in place would be applied
+    twice)."""
+    before = graphs.clone(args)
+    fn(*args)
+    assert _equal(args, before)
+
+
+def assert_reads_nothing_back(monkeypatch, fn, args):
+    """`fn`'s entry for `args` run with every host reader patched to
+    raise and under `_NoHostRead`: the same bits as a run without."""
+    entry = fn.entry(*args)
+    expect = entry.run(*args)      # first use builds the per-device constant tables
+    for attr in ("tolist", "item", "__bool__", "__int__", "__float__", "__index__"):
+        monkeypatch.setattr(torch.Tensor, attr, _raiser(f"Tensor.{attr}"))
+    for attr in ("tensor", "as_tensor", "from_numpy"):
+        monkeypatch.setattr(torch, attr, _raiser(f"torch.{attr}"))
+    with _NoHostRead():
+        out = entry.run(*args)
+    monkeypatch.undo()
+    assert _equal(out, expect)
+
+
+def assert_traced_values(fn, calls):
+    """Two calls that differ in traced values only go through one entry
+    (the card's route, the body on the entry's buffers), each equal to its
+    direct call, and the two results differ."""
+    entry = fn.entry(*calls[0])
+    assert fn.entry(*calls[1]) is entry
+    outs = [entry.run(*args) for args in calls]
+    for args, out in zip(calls, outs):
+        assert _equal(out, fn(*args))
+    assert not _equal(outs[0], outs[1])
+
+
 @pytest.fixture(scope="module")
 def scene():
     calib = _calib()
@@ -175,36 +211,17 @@ def test_traced_scalars_give_each_call_its_own_value(scene, name, values):
     entry's buffers) equal the two direct calls, and differ."""
     kw = "frame_id" if name in ("insert_keyframe_jit", "track_frame_fused") else "slot"
     calls = [_call(scene, name, **{kw: v}) for v in values]
-    fn = calls[0][0]
-    entry = fn.entry(*calls[0][1])
-    assert fn.entry(*calls[1][1]) is entry
-    outs = [entry.run(*args) for _, args in calls]
-    for (_, args), out in zip(calls, outs):
-        assert _equal(out, fn(*args))
-    assert not _equal(outs[0], outs[1])
+    assert_traced_values(calls[0][0], [args for _, args in calls])
 
 
 @pytest.mark.parametrize("name", NAMES)
 def test_graphed_function_leaves_inputs_unchanged(scene, name):
-    fn, args = _call(scene, name)
-    before = graphs.clone(args)
-    fn(*args)
-    assert _equal(args, before)
+    assert_pure(*_call(scene, name))
 
 
 @pytest.mark.parametrize("name", NAMES)
 def test_graphed_function_reads_nothing_back(scene, monkeypatch, name):
-    fn, args = _call(scene, name)
-    entry = fn.entry(*args)
-    expect = entry.run(*args)      # first use builds the per-device constant tables
-    for attr in ("tolist", "item", "__bool__", "__int__", "__float__", "__index__"):
-        monkeypatch.setattr(torch.Tensor, attr, _raiser(f"Tensor.{attr}"))
-    for attr in ("tensor", "as_tensor", "from_numpy"):
-        monkeypatch.setattr(torch, attr, _raiser(f"torch.{attr}"))
-    with _NoHostRead():
-        out = entry.run(*args)
-    monkeypatch.undo()
-    assert _equal(out, expect)
+    assert_reads_nothing_back(monkeypatch, *_call(scene, name))
 
 
 def _track(scene, pipelined):

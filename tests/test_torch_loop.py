@@ -18,6 +18,14 @@ on the CPU.  Tolerances:
   it was;
 - `_compute_sim3` with the reference's RANSAC triplets handed to the port
   (`LoopCloser.triplet_source`): the same loop keyframe and the same total.
+
+The loop stage's graphed functions (`word_match_stage`, `search_by_sim3`,
+`guided_count_stage`, the global BA's `run_global_ba_arrays`, `merge_gba`:
+one CUDA graph replay a call on the card) leave their inputs bit-unchanged
+and read nothing back through their entries; two keyframe pairs (traced
+slots) or two `old_kf` snapshots go through one entry; and `_compute_sim3`,
+`_correct_loop` and the merge with every graphed call sent through its
+entry are the direct run, bit for bit.
 """
 
 import jax
@@ -43,6 +51,8 @@ from multi_orb_slam_tpu_torch.optim import global_ba as t_gba
 from multi_orb_slam_tpu_torch.placerec import vocabulary as t_voc
 
 import test_global_ba
+from test_torch_graphs import (_equal, _routed, assert_pure, assert_reads_nothing_back,
+                               assert_traced_values)
 from test_torch_sim3 import _reference_triplets
 
 torch.set_num_threads(2)
@@ -373,3 +383,129 @@ def test_loop_correction_moves_the_live_pose(monkeypatch):
     D = sys_.tracker._pending_pose_corr
     assert D is not None and not torch.allclose(D, torch.eye(4), atol=1e-3)
     torch.testing.assert_close(D, se3.inverse(T_old) @ T_new)
+
+
+# ---------------------------------------------------------------------------
+# the loop stage's graphed functions (one CUDA graph replay a call on the
+# card), driven through their entries on the CPU
+# ---------------------------------------------------------------------------
+
+LOOP_GRAPHED = ("word_match_stage", "search_by_sim3", "guided_count_stage",
+                "run_global_ba_arrays", "merge_gba")
+
+
+@pytest.fixture(scope="module")
+def loop_voc(drifted):
+    return t_voc.build_vocabulary(drifted["train"], k=10, depth=3, device="cpu")
+
+
+def _search_args(tracked, a, b):
+    st, cfg, calib = tracked["state"], tracked["cfg"], tracked["calib"]
+    g = j_sim3.compose(j_sim3.from_se3(st.kf_Tcw[a]), j_sim3.inverse(j_sim3.from_se3(st.kf_Tcw[b])))
+    return (_state(st), a, b, _t(g), _t(calib.K[0]), cfg.max_mp, cfg.scale_factor, cfg.n_levels)
+
+
+@pytest.fixture(scope="module")
+def loop_calls(tracked, drifted, loop_voc):
+    """{name: (graphed function, arguments, other arguments of the same
+    signature)}: the search and the global BA on the tracked map (BA on its
+    perturbed copy, 3 outer iterations), the word match and the projection
+    count on the drifted map's loop pair and on another candidate, the merge
+    on `test_merge_gba`'s first case with two snapshots of `old_kf`."""
+    kfs = [int(k) for k in np.nonzero(np.asarray(tracked["state"].kf_valid))[0]]
+    d = drifted
+    clean, a, b = _state(d["clean"]), d["kf_a"], d["kf_b"]
+    fids = clean.kf_frame_id.numpy()
+    b2 = int(sorted(np.nonzero(clean.kf_valid.numpy())[0], key=lambda k: fids[k])[1])
+    cal_d, cfg_d = convert.to_torch(d["calib"], t_cam.CameraParams, "cpu"), _port_cfg(d["cfg"])
+    cfg_t = _port_cfg(tracked["cfg"])
+    gba = t_gba.global_ba_arrays(_state(_perturbed(tracked["state"])),
+                                 convert.to_torch(tracked["calib"], t_cam.CameraParams, "cpu"),
+                                 cfg_t)
+    state, args = _merge_case("new keyframe and points")
+    merge = (_state(state),) + tuple(_t(x) for x in args)
+    return {
+        "search_by_sim3": (t_solver.search_by_sim3, _search_args(tracked, kfs[-1], kfs[0]),
+                           _search_args(tracked, kfs[1], kfs[0])),
+        "word_match_stage": (t_lc.word_match_stage, (clean.kf_desc, clean.kf_mp,
+                                                     clean.kf_feat_valid, loop_voc, a, b),
+                             (clean.kf_desc, clean.kf_mp, clean.kf_feat_valid, loop_voc, a, b2)),
+        "guided_count_stage": (t_lc.guided_count_stage, (clean, a, b, _t(d["g_ab"]), cal_d, cfg_d),
+                               (clean, a, b2, _t(d["g_ab"]), cal_d, cfg_d)),
+        "run_global_ba_arrays": (t_gba.run_global_ba_arrays, gba + (cfg_t, 3), None),
+        "merge_gba": (t_lc.merge_gba, merge,
+                      merge[:3] + (torch.tensor([True] + [False] * 7),) + merge[4:]),
+    }
+
+
+@pytest.mark.parametrize("name", LOOP_GRAPHED)
+def test_loop_graphed_function_leaves_inputs_unchanged(loop_calls, name):
+    assert_pure(*loop_calls[name][:2])
+
+
+@pytest.mark.parametrize("name", LOOP_GRAPHED)
+def test_loop_graphed_function_reads_nothing_back(loop_calls, monkeypatch, name):
+    assert_reads_nothing_back(monkeypatch, *loop_calls[name][:2])
+
+
+@pytest.mark.parametrize("name", ["search_by_sim3", "word_match_stage", "guided_count_stage",
+                                  "merge_gba"])
+def test_loop_graphed_function_takes_each_input_through_one_entry(loop_calls, name):
+    """Two keyframe pairs (traced slots), or for the merge two snapshots of
+    the keyframes that existed at launch: one entry, each the direct call's
+    result."""
+    fn, args, other = loop_calls[name]
+    assert_traced_values(fn, [args, other])
+
+
+def test_loop_stage_through_entries_is_the_direct_run(drifted, loop_voc):
+    """`_compute_sim3` on the clean map (the reference's RANSAC triplets, as
+    `test_compute_sim3_with_the_reference_triplets`), `_correct_loop` on the
+    drifted one with the global BA dispatched, and its merge, once directly
+    and once with every graphed call sent through its entry, as on the card:
+    the same bits, the same verification record, one entry a function."""
+    d = drifted
+    a, b = d["kf_a"], d["kf_b"]
+
+    def run():
+        _, lt = _closers(d, run_gba=True)
+        lt.voc = loop_voc
+        lt.triplet_source = lambda valid, ka, kb: torch.from_numpy(_reference_triplets(
+            jax.random.PRNGKey(ka * 1000 + kb), jnp.asarray(valid.numpy()))).long()
+        found = lt._compute_sim3(_state(d["clean"]), a, [b])
+        corrected = lt._correct_loop(_state(d["state"]), a, b, _t(d["g_ab"]))
+        return found, corrected, lt.merge_pending_gba(corrected), lt.verifications
+
+    direct = run()
+    routed, used = _routed(run)
+    assert direct[0] is not None and direct[0][0] == routed[0][0] == b
+    assert direct[0][2] == routed[0][2] and torch.equal(direct[0][1], routed[0][1])
+    assert _equal(direct[1], routed[1]) and _equal(direct[2], routed[2])
+    assert direct[3] == routed[3] and routed[3][-1]["accepted"]
+    assert set(used) == {"word_match_stage", "solve_sim3", "search_by_sim3", "optimize_sim3",
+                         "guided_count_stage", "optimize_essential_graph",
+                         "run_global_ba_arrays", "merge_gba"}, used
+    assert all(n <= 1 and c == 1 for n, c in used.values()), used
+
+
+def test_map_point_information_is_the_distributed_bas(tracked):
+    """`global_ba.map_point_information` (the metric the card holds two
+    global BA solutions' points in) against `dist_ba.point_information` on
+    the same problem flattened at world 1: each point's H_pp, summed over
+    its observations in another order, to 1e-4 of its scale; symmetric."""
+    from multi_orb_slam_tpu_torch.parallel import dist_ba
+
+    st = _state(_perturbed(tracked["state"]))
+    cal = convert.to_torch(tracked["calib"], t_cam.CameraParams, "cpu")
+    state_arrays, calib_arrays, kf_free = t_gba.global_ba_arrays(st, cal, _port_cfg(
+        tracked["cfg"]))
+    H = t_gba.map_point_information(state_arrays, calib_arrays, st.kf_Tcw, st.mp_pos)
+    Tcw, kf_valid, kf_mp, uvr, is2, pos, mp_valid = state_arrays
+    flat = dist_ba.flatten_problem(Tcw.numpy(), kf_valid.numpy(), kf_free.numpy(), kf_mp.numpy(),
+                                   uvr.numpy(), is2.numpy(), pos.numpy(), mp_valid.numpy(), 1)
+    H_dist = dist_ba.point_information(dist_ba.FlatBA(*(torch.from_numpy(a) for a in flat)),
+                                       *calib_arrays, st.kf_Tcw, st.mp_pos)
+    scale = H.abs().amax(dim=(1, 2), keepdim=True) + 1e-9
+    assert float(((H - H_dist).abs() / scale).max()) < 1e-4
+    assert torch.allclose(H, H.transpose(1, 2), atol=1e-3)
+    assert int((H.abs().amax(dim=(1, 2)) > 0).sum()) > 300

@@ -16,6 +16,14 @@ valid indices each, and indices in range when fewer than three are valid.
 later frame is relocalized by both packages: the same `ok`, the pose within
 2 mm and 1e-3 rad (the two draw other triplets; both end in the same two
 pose BAs), the inlier count within 3.
+
+On the same relocalization, each of its graphed stages (`match_stage`,
+`pnp_solve`, `pose_ba_inputs`, `optimize_pose`, `top_up_stage`: one CUDA
+graph replay a call on the card) leaves its inputs bit-unchanged and reads
+nothing back through its entry (`test_torch_graphs`' checks); the traced
+slot gives two slots' direct results through one entry; and `relocalize`
+with every graphed call sent through its entry is the direct run, bit for
+bit, with the same host reads.
 """
 
 import jax
@@ -41,10 +49,14 @@ from multi_orb_slam_tpu_torch.geometry import camera as t_cam
 from multi_orb_slam_tpu_torch.mapping import map_state as t_ms
 from multi_orb_slam_tpu_torch.ops import kernels
 from multi_orb_slam_tpu_torch.ops import orb as t_orb
+from multi_orb_slam_tpu_torch.optim import pose_opt as t_pose_opt
 from multi_orb_slam_tpu_torch.placerec import database as t_db
 from multi_orb_slam_tpu_torch.placerec import vocabulary as t_voc
 from multi_orb_slam_tpu_torch.reloc import pnp as t_pnp
 from multi_orb_slam_tpu_torch.reloc import relocalization as t_reloc
+
+from test_torch_graphs import (_equal, _routed, assert_pure, assert_reads_nothing_back,
+                               assert_traced_values)
 
 torch.set_num_threads(2)
 GATE = 5.991
@@ -237,3 +249,86 @@ def test_dense_match_equals_masked_argmin2():
     np.testing.assert_array_equal(b2.numpy(), np.asarray(b2_j))
     np.testing.assert_array_equal(bi.numpy(), np.asarray(bi_j))
     assert int(bd.max()) == kernels.BIG     # a keyframe feature without a map point
+
+
+# ---------------------------------------------------------------------------
+# relocalization's graphed stages (one CUDA graph replay a call on the card),
+# driven through their entries on the CPU
+# ---------------------------------------------------------------------------
+
+RELOC_GRAPHED = ("match_stage", "pnp_solve", "pose_ba_inputs", "optimize_pose", "top_up_stage")
+
+
+@pytest.fixture(scope="module")
+def reloc_case(lost_scene):
+    """The port's relocalization of frame 15 on the converted map, stage by
+    stage for its first candidate: {name: (graphed function, arguments)},
+    the candidate's slot, another valid slot, and `relocalize`'s inputs."""
+    sys_, jcal, jcfg, seq = (lost_scene[k] for k in ("sys", "jcal", "jcfg", "seq"))
+    fr_j = j_frame.build_frame(jnp.asarray(seq.grays[15]), jnp.asarray(seq.depths[15]), jcal,
+                               jcfg.orb)
+    cfg = TCfg(**CFG_KW, orb=t_orb.ORBConfig(n_features=NF))
+    inputs = (convert.to_torch(sys_.map, t_ms.MapState, "cpu"),
+              convert.to_torch(fr_j, t_frame.FrameData, "cpu"),
+              convert.to_torch(sys_.loop_closer.voc, t_voc.Vocabulary, "cpu"),
+              convert.to_torch(sys_.loop_closer.db, t_db.KeyFrameDB, "cpu"),
+              convert.to_torch(jcal, t_cam.CameraParams, "cpu"), cfg)
+    st, fr, voc, db, cal, _ = inputs
+    kf = int(t_db.detect_relocalization_candidates(db, voc, st, fr.desc[0], fr.valid[0])[0])
+    calls = {"match_stage": (t_reloc.match_stage, (
+        st.kf_desc, st.kf_mp, st.kf_feat_valid, st.mp_valid, st.mp_pos, fr.desc[0],
+        fr.valid[0], kf))}
+    _, mp_of_feat, matched, Xw = t_reloc.match_stage(*calls["match_stage"][1])
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(kf)
+    calls["pnp_solve"] = (t_pnp.pnp_solve, (t_pnp.sample_triplets(matched, 256, gen),
+                                           fr.xy_und[0], Xw, matched, cal.K[0]))
+    Tcw0, inl, _ = t_pnp.pnp_solve(*calls["pnp_solve"][1])
+    calls["pose_ba_inputs"] = (t_reloc.pose_ba_inputs, (matched, inl, mp_of_feat, st.mp_pos,
+                                                         fr, cfg))
+    frame_mp, obs = t_reloc.pose_ba_inputs(*calls["pose_ba_inputs"][1])
+    calls["optimize_pose"] = (t_pose_opt.optimize_pose, (Tcw0, obs, cal.T_rc, cal.K, cal.bf))
+    Tcw, inlier, _ = t_pose_opt.optimize_pose(*calls["optimize_pose"][1])
+    calls["top_up_stage"] = (t_reloc.top_up_stage, (st, kf, frame_mp, inlier, Tcw, fr, cal,
+                                                     cfg))
+    other = next(int(k) for k in torch.nonzero(st.kf_valid)[:, 0] if int(k) != kf)
+    return dict(calls=calls, kf=kf, other=other, inputs=inputs)
+
+
+@pytest.mark.parametrize("name", RELOC_GRAPHED)
+def test_reloc_graphed_function_leaves_inputs_unchanged(reloc_case, name):
+    assert_pure(*reloc_case["calls"][name])
+
+
+@pytest.mark.parametrize("name", RELOC_GRAPHED)
+def test_reloc_graphed_function_reads_nothing_back(reloc_case, monkeypatch, name):
+    assert_reads_nothing_back(monkeypatch, *reloc_case["calls"][name])
+
+
+@pytest.mark.parametrize("name", ["match_stage", "top_up_stage"])
+def test_reloc_stage_takes_each_slot_through_one_entry(reloc_case, name):
+    """The candidate's slot is traced: two slots, one entry, each the direct
+    call's result."""
+    fn, args = reloc_case["calls"][name]
+    at = 7 if name == "match_stage" else 1
+    assert args[at] == reloc_case["kf"]
+    other = args[:at] + (reloc_case["other"],) + args[at + 1:]
+    assert_traced_values(fn, [args, other])
+
+
+def test_relocalize_through_entries_is_the_direct_run(reloc_case):
+    """`relocalize` with every graphed call sent through its entry, as on
+    the card: the direct run's bits (which `test_relocalize_on_a_converted_map`
+    holds to the JAX package), the same host reads, and one entry a stage
+    (the two pose BAs share one)."""
+    inputs = reloc_case["inputs"]
+    r0 = dict(t_reloc.STATS)
+    direct = t_reloc.relocalize(*inputs)
+    r1 = dict(t_reloc.STATS)
+    routed, used = _routed(lambda: t_reloc.relocalize(*inputs))
+    assert direct[0] is routed[0] is True and direct[3] == routed[3]
+    assert _equal(direct[1:3], routed[1:3])
+    assert t_reloc.STATS["host_reads"] - r1["host_reads"] == r1["host_reads"] - r0["host_reads"]
+    assert set(used) == set(RELOC_GRAPHED), used
+    assert all(n <= 1 for n, _ in used.values()), used
+    assert used["optimize_pose"][1] == 2 * used["match_stage"][1]

@@ -17,6 +17,11 @@ Tolerances:
   `tests/test_sim3_multicam.py`: the Sim3 to 1e-4, inliers as above.
 - `build_essential_edges`: the edges equal, the measurements to 1e-5;
   `optimize_essential_graph` to 1e-4.
+
+The forms that run inside CUDA graphs on the card: `align.umeyama_quat`
+(the RANSAC's SVD-free closed form) against the SVD `umeyama`; the three
+graphed solvers leave their inputs bit-unchanged and read nothing back
+through their entries; `sim3.jacfwd_batched` reads nothing back.
 """
 
 import jax
@@ -295,3 +300,112 @@ def test_build_and_optimize_essential_graph():
     assert moved > 1e-3 and np.abs(gt.numpy() - g_corr)[kf_free].max() < 0.5 * moved
     # fixed slots only take a zero step (composed, so rounded once)
     np.testing.assert_allclose(gt.numpy()[~kf_free], g0[~kf_free], atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# the forms that run inside CUDA graphs: no SVD, no host read
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("n,noise,weighted", [(3, 0.0, False), (3, 0.3, False),
+                                               (40, 0.05, True), (200, 1.0, False)])
+def test_umeyama_quat_is_umeyama(n, noise, weighted):
+    """`align.umeyama_quat` (Horn's quaternion form, Jacobi sweeps) against
+    `align.umeyama` (SVD) in float64 on the same float32 inputs, 500 draws:
+    a proper rotation whose fit costs no more than the optimum plus 1e-5 of
+    the data's spread, and (s, R, t) to 1e-5 in the median draw.  The
+    3-point sets of the RANSAC are near-degenerate in a few draws, where the
+    cost is flat along one rotation and neither solver pins R down; with 40
+    or more points every draw is within 1e-5."""
+    from multi_orb_slam_tpu_torch.geometry import align, se3
+
+    rng = np.random.RandomState(n)
+    B = 500
+    src = _t(rng.randn(B, n, 3).astype(np.float32) * 2)
+    R = se3.so3_exp(_t(rng.randn(B, 3).astype(np.float32) * 1.5))
+    dst = (1.3 * (src @ R.transpose(-1, -2)) + _t(rng.randn(B, 1, 3).astype(np.float32))
+           + noise * _t(rng.randn(B, n, 3).astype(np.float32)))
+    w = _t((rng.rand(B, n) < 0.7).astype(np.float32)) if weighted else torch.ones(B, n)
+
+    def cost(fit):
+        s_, R_, t_ = (x.double() for x in fit)
+        r = dst.double() - (s_[:, None, None] * (src.double() @ R_.transpose(-1, -2))
+                            + t_[:, None])
+        return torch.sum(w.double() * torch.sum(r * r, -1), -1)
+
+    spread = torch.sum(w.double() * torch.sum(dst.double() ** 2, -1), -1)
+    for with_scale in (False, True):
+        ref = align.umeyama(src.double(), dst.double(), w.double(), with_scale)
+        quat = align.umeyama_quat(src, dst, w, with_scale)
+        assert bool((cost(quat) <= cost(ref) + 1e-5 * spread).all()), with_scale
+        assert torch.allclose(torch.linalg.det(quat[1]), torch.ones(B), atol=1e-5)
+        for a, c in zip(ref, quat):
+            err = (c.double() - a).abs().reshape(B, -1).amax(dim=1)
+            assert float(err.median()) < 1e-5 and (n < 40 or float(err.max()) < 1e-5)
+
+
+@pytest.fixture(scope="module")
+def loop_solver_calls():
+    """{name: (graphed function, arguments)} of the loop's three solvers on
+    the cases above."""
+    _, (pts_a, pts_b, cams, T_rc) = test_sim3_multicam.make_pair(noise=0.01)
+    valid = np.ones(pts_a.shape[0], bool)
+    tri = _reference_triplets(jax.random.PRNGKey(7), jnp.asarray(valid))
+    K = _t(np.asarray(test_sim3_multicam.K2))
+    _, g0, obs, K2, T_rc2, fix = list(_sim3_problems())[2]
+    covis, kf_valid, frame_id, g_old, g_corr, corr_mask, loops = _pose_graph_case()
+    edges = t_pg.build_essential_edges(covis, kf_valid, frame_id, _t(g_old),
+                                       (_t(g_corr), corr_mask), loops, max_edges=256)
+    kf_free = kf_valid & (np.arange(covis.shape[0]) != 0)
+    return {
+        "solve_sim3": (t_solver.solve_sim3, (
+            torch.from_numpy(tri.copy()).long(), _t(pts_a), _t(pts_b), _t(cams), _t(cams),
+            _t(valid), _t(np.asarray(T_rc)), K)),
+        "optimize_sim3": (t_opt.optimize_sim3, (
+            _t(g0), convert.to_torch(obs, t_opt.Sim3Obs, "cpu"), _t(K2), _t(T_rc2), fix)),
+        "optimize_essential_graph": (t_pg.optimize_essential_graph,
+                                     (_t(g_corr), _t(kf_free)) + tuple(edges)),
+    }
+
+
+@pytest.mark.parametrize("name", ["solve_sim3", "optimize_sim3", "optimize_essential_graph"])
+def test_loop_solver_leaves_inputs_unchanged(loop_solver_calls, name):
+    from test_torch_graphs import assert_pure
+
+    assert_pure(*loop_solver_calls[name])
+
+
+@pytest.mark.parametrize("name", ["solve_sim3", "optimize_sim3", "optimize_essential_graph"])
+def test_loop_solver_reads_nothing_back(loop_solver_calls, monkeypatch, name):
+    """Each solver through its entry with every host reader patched to
+    raise (`test_torch_graphs.assert_reads_nothing_back`): the Sim3 LM and the
+    essential graph take their Jacobians with `sim3.jacfwd_batched`
+    (`torch.func.jvp`), the RANSAC its closed form with `umeyama_quat`."""
+    from test_torch_graphs import assert_reads_nothing_back
+
+    assert_reads_nothing_back(monkeypatch, *loop_solver_calls[name])
+
+
+def test_jacfwd_batched_reads_nothing_back(monkeypatch):
+    """The forward-mode Jacobian alone under the same check: `torch.func.jvp`
+    over the tangent batch reads nothing back and makes no tensor from host
+    data."""
+    from test_torch_fused import _NoHostRead, _raiser
+
+    rng = np.random.RandomState(3)
+    gt, ht = t_sim3.exp(_t(_tangents("general", 30, rng))), t_sim3.exp(
+        _t(_tangents("general", 30, rng)))
+
+    def f(x_):
+        return t_sim3.log(t_sim3.compose(t_sim3.exp(x_), t_sim3.compose(gt, ht)))
+
+    x = _t(_tangents("small_sigma", 30, rng))
+    want = t_sim3.jacfwd_batched(f, x)
+    for attr in ("tolist", "item", "__bool__", "__int__", "__float__", "__index__"):
+        monkeypatch.setattr(torch.Tensor, attr, _raiser(f"Tensor.{attr}"))
+    for attr in ("tensor", "as_tensor", "from_numpy"):
+        monkeypatch.setattr(torch, attr, _raiser(f"torch.{attr}"))
+    with _NoHostRead():
+        got = t_sim3.jacfwd_batched(f, x)
+    monkeypatch.undo()
+    assert torch.equal(got, want)

@@ -35,7 +35,10 @@ Each run imports ONE package: `--package torch` the PyTorch port (on
 `--device`, default cpu), `--package jax` the reference on the CPU.  Both
 render the same frames with their own copy of the same numpy renderer.
 `compare` prints the first frame at which the states differ, where the
-inlier counts drift apart, each run's first lost frame, and the loop records.
+inlier counts drift apart, each run's first lost frame, and the loop records;
+for two tracker runs also the frames that inserted a keyframe (with
+`--mapping`), the ATE over the tracked frames, and how far the camera centres
+of the final trajectories part.
 """
 
 import argparse
@@ -218,8 +221,9 @@ def run_torch(args):
         pending[0] = local_mapping.covis_kf_count(m, kf_slot)
         return m
 
+    kf_frames = []
     if args.mapping:
-        tracker.kf_inserted_cb = kf_cb
+        tracker.kf_inserted_cb = recording_keyframes(tracker, kf_cb, kf_frames)
     rows = []
     for i, (g, d) in enumerate(zip(grays, depths)):
         t = time.perf_counter()
@@ -228,7 +232,16 @@ def run_torch(args):
                               int(tracker.map.n_mp), tracker.Tcw.cpu().numpy(), poses_gt,
                               time.perf_counter() - t))
     traj = tracker.absolute_trajectory()
-    return rows, [bool(lost) for *_, lost in traj], [np.asarray(T) for _, _, T, _ in traj], poses_gt
+    return (rows, [bool(lost) for *_, lost in traj], [np.asarray(T) for _, _, T, _ in traj],
+            poses_gt, kf_frames)
+
+
+def recording_keyframes(tracker, kf_cb, kf_frames):
+    """`kf_cb` that first appends the keyframe's frame id to `kf_frames`."""
+    def on_keyframe(kf_slot):
+        kf_frames.append(int(tracker.last_kf_frame))
+        return kf_cb(kf_slot)
+    return on_keyframe
 
 
 def system_torch(args):
@@ -355,8 +368,9 @@ def run_jax(args):
         pending[0] = local_mapping.covis_kf_count(m, jnp.asarray(kf_slot, jnp.int32))
         return m
 
+    kf_frames = []
     if args.mapping:
-        tracker.kf_inserted_cb = kf_cb
+        tracker.kf_inserted_cb = recording_keyframes(tracker, kf_cb, kf_frames)
     rows = []
     for i, (g, d) in enumerate(zip(grays, depths)):
         t = time.perf_counter()
@@ -365,7 +379,8 @@ def run_jax(args):
                               int(tracker.map.n_kf), int(tracker.map.n_mp),
                               np.asarray(tracker.Tcw), poses_gt, time.perf_counter() - t))
     traj = tracker.absolute_trajectory()
-    return rows, [bool(lost) for *_, lost in traj], [np.asarray(T) for _, _, T, _ in traj], poses_gt
+    return (rows, [bool(lost) for *_, lost in traj], [np.asarray(T) for _, _, T, _ in traj],
+            poses_gt, kf_frames)
 
 
 def frame_row(i, state, n_inl, n_kf, n_mp, Tcw, poses_gt, seconds):
@@ -419,21 +434,27 @@ def cmd_run(args):
         raise SystemExit("--loop needs --system")
     if args.system:
         return cmd_system(args)
-    rows, lost, traj, poses_gt = (run_torch if args.package == "torch" else run_jax)(args)
+    rows, lost, traj, poses_gt, kf_frames = (run_torch if args.package == "torch"
+                                             else run_jax)(args)
     gt0_inv = np.linalg.inv(np.asarray(poses_gt[0], np.float64))
-    final_err = [float(np.linalg.norm(centre(T) - centre(np.asarray(poses_gt[i], np.float64) @ gt0_inv)))
-                 for i, T in enumerate(traj)]
+    gt_c = np.stack([centre(np.asarray(poses_gt[i], np.float64) @ gt0_inv)
+                     for i in range(len(traj))])
+    est_c = np.stack([centre(T) for T in traj])
+    final_err = [float(x) for x in np.linalg.norm(est_c - gt_c, axis=1)]
+    ok = [i for i, x in enumerate(lost) if not x]
+    ate = ate_rmse(est_c[ok], gt_c[ok])
     out = {"package": args.package, "scene": args.scene, "mapping": args.mapping,
            "pipelined": args.pipelined, "noise": args.noise, "seed": args.seed,
            "device": args.device if args.package == "torch" else "cpu",
-           "frames": rows, "lost": lost, "final_centre_err_m": final_err}
+           "frames": rows, "lost": lost, "final_centre_err_m": final_err,
+           "keyframe_frames": kf_frames, "centres": est_c.tolist(), "ate_m": ate}
     with open(args.out, "w") as f:
         json.dump(out, f)
-    n_ok = sum(1 for x in lost if not x)
     first = lost.index(True) if True in lost else None
     print(f"{args.package} {args.scene} mapping={args.mapping} pipelined={args.pipelined}: "
-          f"{n_ok}/{len(lost)} frames tracked, first lost frame {first}, "
-          f"keyframes {rows[-1]['n_kf']}, map points {rows[-1]['n_mp']}")
+          f"{len(ok)}/{len(lost)} frames tracked, first lost frame {first}, "
+          f"keyframes {rows[-1]['n_kf']} at frames {kf_frames}, map points {rows[-1]['n_mp']}, "
+          f"ATE over the tracked frames {ate * 1e3:.3f} mm")
 
 
 def cmd_compare(args):
@@ -458,6 +479,12 @@ def cmd_compare(args):
                       > 0.1 * max(a["frames"][i]["inliers"], 1)), None)
     print(f"first frame with another lost flag: {first_state}; another keyframe count: "
           f"{first_kf}; inliers more than 10% apart: {first_inl}")
+    if "centres" in a and "centres" in b:
+        d = np.linalg.norm(np.asarray(a["centres"])[:n] - np.asarray(b["centres"])[:n], axis=1)
+        print(f"keyframes at frames {a['keyframe_frames']} / {b['keyframe_frames']}; ATE "
+              f"{a['ate_m'] * 1e3:.3f} / {b['ate_m'] * 1e3:.3f} mm; camera centres apart: max "
+              f"{d.max() * 1e3:.3f} mm at frame {int(d.argmax())}, first above 1 mm at frame "
+              f"{next((i for i in range(n) if d[i] > 1e-3), None)}")
     print(f"{'frame':>5} | {a['package']:>5} inl n_kf  err mm lost | {b['package']:>5} inl n_kf  err mm lost")
     for i in range(n):
         ra, rb = a["frames"][i], b["frames"][i]
