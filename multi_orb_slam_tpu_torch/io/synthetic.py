@@ -13,6 +13,8 @@ rendered with a z-buffered painter's algorithm, plus a depth image.
 
 from __future__ import annotations
 
+import contextlib
+import os
 from typing import NamedTuple
 
 import numpy as np
@@ -386,4 +388,73 @@ def loop_circuit(K: np.ndarray, T_rc: np.ndarray, n_frames: int = 240, height: i
         if 0.08 <= s < 0.60:
             d = d * (1.0 + drift * np.sin(np.pi * (s - 0.08) / 0.52))
         frames.append((g, d))
+    return frames, np.asarray(poses, np.float64)
+
+
+def _render_rig(task):
+    """One rig pose's views: (grays [C, H, W], depths [C, H, W]) float32."""
+    world, K, T_rc, T, height, width = task
+    views = [render_rgbd(world, K, T_rc[c] @ T, height, width) for c in range(len(T_rc))]
+    return (np.stack([v[0] for v in views]).astype(np.float32),
+            np.stack([v[1] for v in views]).astype(np.float32))
+
+
+def render_frames(world: World, K: np.ndarray, T_rc: np.ndarray, poses, height: int,
+                  width: int, pool=None):
+    """Every rig camera's view of `world` from each pose in `poses`:
+    [(grays [C, H, W], depths [C, H, W])] float32, rendered by `pool`'s
+    processes (`render_pool`) where one is given."""
+    tasks = [(world, np.asarray(K, np.float32), np.asarray(T_rc), np.asarray(T), height, width)
+             for T in poses]
+    if pool is None:
+        return [_render_rig(t) for t in tasks]
+    return list(pool.map(_render_rig, tasks, chunksize=max(len(tasks) // 32, 1)))
+
+
+THREAD_VARS = ("OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS", "MKL_NUM_THREADS")
+
+
+@contextlib.contextmanager
+def render_pool(workers: int):
+    """A pool of `workers` processes started with `spawn`, each limited to
+    one BLAS / OpenMP thread (the renderer is single-threaded numpy: more
+    threads a process only oversubscribe the cores); shut down on exit."""
+    import concurrent.futures
+    import multiprocessing
+
+    saved = {k: os.environ.get(k) for k in THREAD_VARS}
+    try:
+        os.environ.update({k: "1" for k in THREAD_VARS})
+        pool = concurrent.futures.ProcessPoolExecutor(
+            workers, mp_context=multiprocessing.get_context("spawn"))
+        list(pool.map(int, range(workers)))     # every worker started while they hold
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    with pool:
+        yield pool
+
+
+LONGRUN_FRAMES = 520
+LONGRUN_LOW_CONTRAST = (200, 280)
+
+
+def longrun_circuit(K: np.ndarray, T_rc: np.ndarray, height: int = 240, width: int = 320,
+                    n_frames: int = LONGRUN_FRAMES, pool=None):
+    """The long run of `tests/test_longrun.py`: an outward circuit of 2.2
+    laps of a 2.2 m circle in a 7 x 4 x 7 m box of 5000 squares (seed 11),
+    every rig camera rendered, the grey of frames 200-279 compressed to half
+    contrast around the background (g = 100 + (g - 100) * 0.5: fewer FAST
+    corners, weaker tracking); `pool` as `render_frames` takes it.  Returns (frames: [(grays [C, H, W], depths
+    [C, H, W])] float32, poses [n_frames, 4, 4] world -> rig)."""
+    world = make_box_world(seed=11, n_points=5000, box=(7.0, 4.0, 7.0))
+    poses = circuit_trajectory(n_frames, radius=2.2, laps=2.2)
+    frames = render_frames(world, K, T_rc, poses, height, width, pool)
+    lo, hi = LONGRUN_LOW_CONTRAST
+    for i in range(lo, min(hi, n_frames)):
+        g, d = frames[i]
+        frames[i] = ((100.0 + (g - 100.0) * 0.5).astype(np.float32), d)
     return frames, np.asarray(poses, np.float64)

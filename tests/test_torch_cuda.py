@@ -1414,3 +1414,81 @@ def test_cuda_loop_keyframe_on_graphs_is_the_eager_run(loop_run):
     print(f"loop keyframe: kf_b {fg[0]}, total {fg[2]}; graphs against eager: poses after the "
           f"pose graph {d_pose:.3e}; after the merge {reading}")
     assert d_pose <= LOOP_POSE_TOL and ok, (d_pose, reading)
+
+
+# ---------------------------------------------------------------------------
+# the capacity overflow run (tests/test_capacity.py) on graphs
+# ---------------------------------------------------------------------------
+
+OVERFLOW_CFG = dict(n_cams=1, max_feat=512, max_kf=24, max_mp=768, local_cap=512,
+                    ba_local_cap=768, max_frames_kf=5, width=320, height=240)
+
+
+@pytest.mark.cuda
+def test_cuda_overflow_run_on_graphs_is_the_eager_run():
+    """`tests/test_capacity.py`'s overflow run (25 frames, one 320x240 camera,
+    a map ~2x too small, the mapping stage as the keyframe callback) through
+    `Tracker` on graphs and under `graphs.eager()`: the same per-frame
+    states and `n_mp`, the same `n_alloc_failed`, the final positions to the
+    bit; then the final map filled over 90% through one mapping stage on
+    graphs and eagerly: relieved to >= M / 10 free slots, every field the
+    same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import contextlib
+
+    from multi_orb_slam_tpu_torch.config import SlamConfig
+    from multi_orb_slam_tpu_torch.frontend import tracking
+    from multi_orb_slam_tpu_torch.geometry import camera as cam_mod
+    from multi_orb_slam_tpu_torch.io import synthetic
+    from multi_orb_slam_tpu_torch.mapping import local_mapping
+    from multi_orb_slam_tpu_torch.utils import graphs
+
+    K = np.array([520.9, 521.0, 160.0, 120.0], np.float32)
+    seq = synthetic.make_sequence(n_frames=25, K=K, T_rc=np.eye(4, dtype=np.float32)[None],
+                                  height=240, width=320, seed=2, n_points=4000)
+    frames = [(torch.from_numpy(np.asarray(g)).cuda(), torch.from_numpy(np.asarray(d)).cuda())
+              for g, d in zip(seq.grays, seq.depths)]
+    cfg = SlamConfig(**OVERFLOW_CFG, orb=orb.ORBConfig(n_features=512))
+    calib = cam_mod.CameraParams(K=torch.from_numpy(K)[None].cuda(),
+                                 dist=torch.zeros((1, 5), device="cuda"),
+                                 T_rc=torch.eye(4, device="cuda")[None],
+                                 bf=torch.tensor(40.0, device="cuda"), width=320, height=240)
+    runs = {}
+    for mode in ("eager", "graphs"):
+        with graphs.eager() if mode == "eager" else contextlib.nullcontext():
+            tr = tracking.Tracker(calib, cfg)
+            tr.kf_inserted_cb = (lambda tr: lambda s: local_mapping.run_mapping_stage(
+                tr.map, s, tr.frame_id, calib, cfg))(tr)
+            states, n_mp = [], []
+            for g, d in frames:
+                tr.process(g, d)
+                states.append(int(tr.state))
+                n_mp.append(int(tr.map.n_mp))
+        runs[mode] = (states, n_mp, tr.map, tr.frame_id)
+    (sg, ng, mg, fid), (se, ne, me, _) = runs["graphs"], runs["eager"]
+    assert sg == se and ng == ne and int(mg.n_alloc_failed) == int(me.n_alloc_failed)
+    assert torch.equal(mg.mp_pos, me.mp_pos)
+    assert sum(s == 1 for s in sg) >= 18 and int(mg.n_mp) <= cfg.max_mp
+    # capacity relief inside the mapping stage's graph
+    M = cfg.max_mp
+    n_fill = int(0.90 * M) + 20 - int(mg.n_mp)
+    free = torch.nonzero(~mg.mp_valid[:M - 1])[:n_fill, 0]
+    slots = free.to(torch.int32)
+    full = mg._replace(
+        mp_valid=mg.mp_valid.index_put((free,), torch.ones_like(free, dtype=torch.bool)),
+        mp_visible=mg.mp_visible.index_put((free,), torch.full_like(slots, 40)),
+        mp_found=mg.mp_found.index_put((free,), 10 + slots % 30),
+        mp_first_frame=mg.mp_first_frame.index_put((free,), torch.full_like(slots, -1)),
+        n_mp=mg.n_mp + free.numel())
+    kf = int(torch.argmax(torch.where(full.kf_valid, full.kf_frame_id, -1)))
+    out = {}
+    for mode in ("eager", "graphs"):
+        with graphs.eager() if mode == "eager" else contextlib.nullcontext():
+            out[mode] = local_mapping.run_mapping_stage(graphs.clone(full), kf, fid, calib, cfg)
+    assert M - int(out["graphs"].n_mp) >= max(M // 10, 64)
+    for name, a, b in zip(full._fields, out["graphs"], out["eager"]):
+        assert torch.equal(a, b), name
+    print(f"overflow run: states {''.join(map(str, sg))}, n_mp {int(mg.n_mp)}, n_alloc_failed "
+          f"{int(mg.n_alloc_failed)}; relief {M - int(full.n_mp)} -> "
+          f"{M - int(out['graphs'].n_mp)} free slots, graphs the eager bits")

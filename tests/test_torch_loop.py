@@ -15,7 +15,9 @@ on the CPU.  Tolerances:
 - `merge_gba` (both scenarios of `test_global_ba.TestAsyncGBAMerge`): 1e-5;
 - `_correct_loop` on `test_loop_e2e`'s drifted map: keyframe poses to 1e-3,
   and in both packages the drifted keyframe's error falls below 0.35 of what
-  it was;
+  it was; a second loop on the same map with the first loop's GBA still
+  pending: the same accumulated loop pairs, the pending GBA replaced (not
+  merged) in both, its poses and the merged map's to 1e-3;
 - `_compute_sim3` with the reference's RANSAC triplets handed to the port
   (`LoopCloser.triplet_source`): the same loop keyframe and the same total.
 
@@ -320,6 +322,51 @@ def test_correct_loop_on_the_drifted_map(drifted):
     for out in (np.asarray(out_j.kf_Tcw[a]), out_t.kf_Tcw[a].numpy()):
         assert _pose_err(out, d["Tcw_a"]) < 0.35 * e_before
     assert lt.loop_pairs == lj.loop_pairs == [(a, b)]
+
+
+def test_second_loop_supersedes_the_pending_gba(drifted):
+    """Two `_correct_loop` calls on one map with the first loop's GBA still
+    pending (no keyframe boundary, so no merge, between them): in both
+    packages the loop pairs accumulate alike, the second dispatch replaces
+    the first (dropped, never merged), the second map's poses agree to
+    1e-3, and the merge at the next boundary folds in the second GBA only."""
+    d = drifted
+    lj, lt = _closers(d, run_gba=True)
+    a, b, clean = d["kf_a"], d["kf_b"], d["clean"]
+    fids = np.asarray(clean.kf_frame_id)
+    order = sorted(np.nonzero(np.asarray(clean.kf_valid))[0], key=lambda k: fids[k])
+    a2 = int(order[-2])       # the keyframe before kf_a closes on kf_b too
+    g_ab2 = j_sim3.compose(j_sim3.from_se3(clean.kf_Tcw[a2]),
+                           j_sim3.inverse(j_sim3.from_se3(clean.kf_Tcw[b])))
+    out1_j = lj._correct_loop(d["state"], a, b, d["g_ab"])
+    first_j = lj._gba_pending
+    out2_j = lj._correct_loop(out1_j, a2, b, g_ab2)
+    out1_t = lt._correct_loop(_state(d["state"]), a, b, _t(d["g_ab"]))
+    first_t = lt._gba_pending
+    out2_t = lt._correct_loop(out1_t, a2, b, _t(g_ab2))
+    assert lt.loop_pairs == lj.loop_pairs == [(a, b), (a2, b)]
+    for lc, first in ((lj, first_j), (lt, first_t)):
+        assert lc.n_gba_merged == 0
+        assert lc._gba_pending is not None and lc._gba_pending is not first
+    valid = np.asarray(out2_j.kf_valid)
+    np.testing.assert_allclose(out2_t.kf_Tcw.numpy()[valid], np.asarray(out2_j.kf_Tcw)[valid],
+                               atol=1e-3)
+    # the pending GBA is the second map's, in both: its snapshot and poses
+    for k, name in ((2, "kf_valid"), (3, "kf_frame_id"), (4, "mp_valid")):
+        np.testing.assert_array_equal(lt._gba_pending[k].numpy(), np.asarray(lj._gba_pending[k]))
+        np.testing.assert_array_equal(lt._gba_pending[k].numpy(),
+                                      np.asarray(getattr(out2_j, name)))
+    np.testing.assert_allclose(lt._gba_pending[0].numpy()[valid],
+                               np.asarray(lj._gba_pending[0])[valid], atol=1e-3)
+    second_t = lt._gba_pending
+    merged_j, merged_t = lj.merge_pending_gba(out2_j), lt.merge_pending_gba(out2_t)
+    assert lj.n_gba_merged == lt.n_gba_merged == 1
+    assert lj._gba_pending is None and lt._gba_pending is None
+    np.testing.assert_allclose(merged_t.kf_Tcw.numpy()[valid], np.asarray(merged_j.kf_Tcw)[valid],
+                               atol=1e-3)
+    # the merge took the second GBA's poses, not the superseded first's
+    assert torch.equal(merged_t.kf_Tcw, t_lc.merge_gba(out2_t, *second_t).kf_Tcw)
+    assert not torch.equal(merged_t.kf_Tcw, t_lc.merge_gba(out2_t, *first_t).kf_Tcw)
 
 
 def test_compute_sim3_with_the_reference_triplets(drifted):

@@ -299,24 +299,6 @@ def test_map_state_functions(ref_run, stages):
     _assert_same(out_j, out_t, atol=0.0)
 
 
-def test_relieve_capacity_evicts(ref_run):
-    """A store with old unprotected points: the lowest found/visible go."""
-    rng = np.random.RandomState(2)
-    K, Cc, F, M = 16, 1, 8, 256
-    fields = dict(
-        kf_valid=np.arange(K) < 14, kf_frame_id=np.arange(K, dtype=np.int32) * 3,
-        kf_mp=np.full((K, Cc, F), -1, np.int32), mp_valid=np.arange(M) < 200,
-        mp_found=rng.randint(1, 20, M).astype(np.int32),
-        mp_visible=rng.randint(10, 30, M).astype(np.int32), n_mp=np.asarray(200, np.int32))
-    fields["kf_mp"][:14, 0, :] = rng.permutation(112).reshape(14, 8)
-    js = j_ms.make_empty(K, Cc, F, M)._replace(**{k: jnp.asarray(v) for k, v in fields.items()})
-    ts = t_ms.make_empty(K, Cc, F, M, device="cpu")._replace(
-        **{k: torch.from_numpy(np.asarray(v).copy()) for k, v in fields.items()})
-    out_j, out_t = j_ms.relieve_capacity(js, 100), t_ms.relieve_capacity(ts, 100)
-    assert int(out_j.n_mp) == 200 - (100 - 56)
-    _assert_same(out_j, out_t, atol=0.0)
-
-
 def test_run_mapping_stage(ref_run, stages):
     """The slice as a whole, on the snapshot, all stages on."""
     s = ref_run["snap"]

@@ -31,6 +31,20 @@ inliers, the total and the decision; and at the end `n_loops_closed`,
 `n_gba_merged`, the keyframes, the frames lost and the ATE over all frames
 after rigid alignment.  About 6 minutes per package on 8 CPU cores.
 
+`--system --scene longrun` runs `tests/test_longrun.py`'s scene: 520 frames
+of an outward circuit of 2.2 laps (radius 2.2 m) in a 7 x 4 x 7 m box of 5000
+squares (seed 11), frames 200-279 at half contrast, the same rig, loop
+closing with global BA on and the vocabulary built as for `--loop`.
+`--size test` (the default) is the test's: 320x240, K = (260, 260, 160, 120),
+bf = 20, 512 features, `max_kf=96, max_mp=16384, local_cap=1024,
+new_mp_per_cam=128`; `--size full` is the bench's width: 640x480, K =
+(520.9, 521.0, 320, 240), bf = 40, 1024 features and the default
+`SlamConfig`.  Both set `th_depth=4.0` as the test does.  Each frame's row
+then also carries the loops closed, the GBAs merged, whether a GBA is
+pending and whether the frame inserted a keyframe; the record ends with the
+test's four checks (frames not OK, keyframe cadence, the low-contrast
+stretch's cadence, the map's capacity) and the loops' frames and keyframes.
+
 Each run imports ONE package: `--package torch` the PyTorch port (on
 `--device`, default cpu), `--package jax` the reference on the CPU.  Both
 render the same frames with their own copy of the same numpy renderer.
@@ -81,6 +95,53 @@ def _render(synthetic, scene, n_frames, T_rc):
     return grays, depths, np.asarray(poses)
 
 
+LONG_FRAMES, LONG_LOWTEX = 520, (200, 280)
+LONG_SIZES = {"test": ((240, 320), [260.0, 260.0, 160.0, 120.0], 20.0, 512),
+              "full": ((480, 640), K4_BENCH, 40.0, 1024)}
+
+
+def render_longrun(synthetic, T_rc, size):
+    """`tests/test_longrun.py`'s frames at `size` ("test" or "full"):
+    (grays, depths) lists of [2, H, W] arrays and the poses."""
+    (h, w), K, _, _ = LONG_SIZES[size]
+    world = synthetic.make_box_world(seed=11, n_points=5000, box=(7.0, 4.0, 7.0))
+    poses = synthetic.circuit_trajectory(LONG_FRAMES, radius=2.2, laps=2.2)
+    grays, depths = [], []
+    for i, T in enumerate(poses):
+        views = [synthetic.render_rgbd(world, np.asarray(K, np.float32), T_rc[c] @ T, h, w)
+                 for c in range(C)]
+        g = np.stack([v[0] for v in views])
+        if LONG_LOWTEX[0] <= i < LONG_LOWTEX[1]:
+            g = 100.0 + (g - 100.0) * 0.5
+        grays.append(g.astype(np.float32))
+        depths.append(np.stack([v[1] for v in views]).astype(np.float32))
+    return grays, depths, np.asarray(poses)
+
+
+def longrun_cfg_kw(size):
+    (h, w), _, _, n_feat = LONG_SIZES[size]
+    kw = dict(n_cams=C, width=w, height=h, th_depth=4.0)
+    if size == "test":
+        kw.update(max_feat=512, max_kf=96, max_mp=16384, local_cap=1024, new_mp_per_cam=128)
+    return kw, n_feat
+
+
+def longrun_checks(kf_frames, n_not_ok, st_n_kf, st_n_mp, n_alloc_failed, cfg):
+    """`tests/test_longrun.py`'s four assertions, as values and verdicts."""
+    n = len(kf_frames)
+    lo, hi = LONG_LOWTEX
+    rate_low = sum(1 for f in kf_frames if lo <= f < hi) / (hi - lo)
+    rate_all = n / LONG_FRAMES
+    return {"not_ok": n_not_ok, "not_ok_ok": n_not_ok <= 10,
+            "keyframes_created": n, "cadence": LONG_FRAMES / max(n, 1),
+            "cadence_ok": LONG_FRAMES // 20 <= n <= LONG_FRAMES // 6,
+            "rate_low": rate_low, "rate_all": rate_all,
+            "rate_low_ok": rate_low <= 2.5 * rate_all + 0.02,
+            "n_alloc_failed": n_alloc_failed, "n_kf": st_n_kf, "n_mp": st_n_mp,
+            "capacity_ok": (n_alloc_failed == 0 and st_n_kf < cfg.max_kf - 1
+                            and st_n_mp < cfg.max_mp)}
+
+
 LOOP_H, LOOP_W, LOOP_FRAMES, LOOP_DRIFT = 240, 320, 240, 0.15
 LOOP_K4 = [260.0, 260.0, 160.0, 120.0]
 
@@ -108,6 +169,10 @@ def render_loop_circuit(synthetic, T_rc, noise=0.0, seed=0):
         grays = [np.clip(g + rng.normal(0.0, noise, g.shape), 0, 255).astype(np.float32)
                  for g in grays]
     return grays, depths, np.asarray(poses)
+
+
+def loop_on(args):
+    return args.loop or args.scene == "longrun"
 
 
 def loop_cfg_kw():
@@ -168,20 +233,28 @@ def run_system(args, pkg):
     system_mod, synthetic, grays, depths, poses_gt, slam, to_np = pkg(args)
     rows, frame_of_rec, recs = [], [], None
     lc = slam.loop_closer
+    tr = slam.tracker
+    kf_frames = []
+    tr.kf_inserted_cb = recording_keyframes(tr, tr.kf_inserted_cb, kf_frames)
     for i, (g, d) in enumerate(zip(grays, depths)):
         t = time.perf_counter()
+        n_kf_before = len(kf_frames)
         slam.track_rgbd(g[0], d[0], g[1], d[1], timestamp=i / 30.0)
-        tr = slam.tracker
         n_rec = len(lc.verifications) if lc is not None else 0
         frame_of_rec.extend([i] * (n_rec - len(frame_of_rec)))
+        events = {"kf_inserted": len(kf_frames) > n_kf_before}
+        if lc is not None:
+            events.update(loops_closed=lc.n_loops_closed, gba_merged=lc.n_gba_merged,
+                          gba_pending=lc._gba_pending is not None)
         rows.append(frame_row(i, int(slam.get_tracking_state()), int(tr.last_n_inliers),
                               int(tr.map.n_kf), int(tr.map.n_mp), to_np(tr.Tcw), poses_gt,
-                              time.perf_counter() - t))
+                              time.perf_counter() - t, **events))
+    slam.kf_frames = kf_frames
     slam.shutdown()
     traj = slam.tracker.absolute_trajectory()
     if lc is not None:
         recs = [dict(r, at_frame=f) for r, f in zip(lc.verifications, frame_of_rec)]
-    return rows, traj, poses_gt, recs, lc
+    return rows, traj, poses_gt, recs, lc, slam
 
 
 def centre(T):
@@ -265,6 +338,11 @@ def system_torch(args):
         cfg = SlamConfig(**loop_cfg_kw(), orb=orb.ORBConfig(n_features=512))
         grays, depths, poses_gt = render_loop_circuit(synthetic, T_rc.numpy(), args.noise,
                                                       args.seed)
+    elif args.scene == "longrun":
+        (Hh, Ww), K4, bf, _ = LONG_SIZES[args.size]
+        kw, n_feat = longrun_cfg_kw(args.size)
+        cfg = SlamConfig(**kw, orb=orb.ORBConfig(n_features=n_feat))
+        grays, depths, poses_gt = render_longrun(synthetic, T_rc.numpy(), args.size)
     else:
         K4, bf, (Hh, Ww) = K4_BENCH, 40.0, (H, W)
         cfg = SlamConfig(n_cams=C, width=W, height=H, orb=orb.ORBConfig(n_features=1024))
@@ -274,9 +352,9 @@ def system_torch(args):
         K=torch.tensor([K4] * C, device=dev), dist=torch.zeros((C, 5), device=dev),
         T_rc=T_rc.to(dev), bf=torch.tensor(bf, device=dev), width=Ww, height=Hh)
     slam = system_mod.System(sensor=system_mod.Sensor.DUAL_RGBD, calib=calib, cfg=cfg,
-                             enable_loop_closing=args.loop, pipelined=args.pipelined,
+                             enable_loop_closing=loop_on(args), pipelined=args.pipelined,
                              pipeline_depth=3, device=dev)
-    if args.loop:
+    if loop_on(args):
         descs = [orb.extract_orb(torch.from_numpy(grays[i][0]).to(dev), cfg.orb)
                  for i in range(0, len(grays), 8)]
         descs = np.concatenate([f.desc[f.valid].cpu().numpy() for f in descs])
@@ -312,6 +390,11 @@ def system_jax(args):
         cfg = SlamConfig(**loop_cfg_kw(), orb=orb.ORBConfig(n_features=512))
         grays, depths, poses_gt = render_loop_circuit(synthetic, np.asarray(T_rc), args.noise,
                                                       args.seed)
+    elif args.scene == "longrun":
+        (Hh, Ww), K4, bf, _ = LONG_SIZES[args.size]
+        kw, n_feat = longrun_cfg_kw(args.size)
+        cfg = SlamConfig(**kw, orb=orb.ORBConfig(n_features=n_feat))
+        grays, depths, poses_gt = render_longrun(synthetic, np.asarray(T_rc), args.size)
     else:
         K4, bf, (Hh, Ww) = K4_BENCH, 40.0, (H, W)
         cfg = SlamConfig(n_cams=C, width=W, height=H, orb=orb.ORBConfig(n_features=1024))
@@ -320,9 +403,9 @@ def system_jax(args):
     calib = cam_mod.CameraParams(K=jnp.tile(jnp.asarray([K4]), (C, 1)), dist=jnp.zeros((C, 5)),
                                  T_rc=T_rc, bf=jnp.asarray(bf), width=Ww, height=Hh)
     slam = system_mod.System(calib=calib, cfg=cfg, sensor=system_mod.Sensor.DUAL_RGBD,
-                             enable_loop_closing=args.loop, pipelined=args.pipelined,
+                             enable_loop_closing=loop_on(args), pipelined=args.pipelined,
                              pipeline_depth=3)
-    if args.loop:
+    if loop_on(args):
         descs = []
         for i in range(0, len(grays), 8):
             f = orb.extract_orb(jnp.asarray(grays[i][0]), cfg.orb)
@@ -383,19 +466,19 @@ def run_jax(args):
             poses_gt, kf_frames)
 
 
-def frame_row(i, state, n_inl, n_kf, n_mp, Tcw, poses_gt, seconds):
+def frame_row(i, state, n_inl, n_kf, n_mp, Tcw, poses_gt, seconds, **events):
     # ground truth starts at poses_gt[0], the tracker at the identity
     gt_rel = np.asarray(poses_gt[i], np.float64) @ np.linalg.inv(np.asarray(poses_gt[0], np.float64))
     err = float(np.linalg.norm(centre(Tcw) - centre(gt_rel)))
     row = {"frame": i, "state": state, "inliers": int(n_inl), "n_kf": n_kf, "n_mp": n_mp,
-           "centre_err_m": err, "seconds": seconds}
+           "centre_err_m": err, "seconds": seconds, **events}
     print(json.dumps(row), flush=True)
     return row
 
 
 def cmd_system(args):
     pkg = system_torch if args.package == "torch" else system_jax
-    rows, traj, poses_gt, recs, lc = run_system(args, pkg)
+    rows, traj, poses_gt, recs, lc, slam = run_system(args, pkg)
     lost = [bool(x[-1]) for x in traj]
     fids = [fid for fid, *_ in traj]
     est = np.stack([centre(T) for _, _, T, _ in traj])
@@ -403,20 +486,33 @@ def cmd_system(args):
     ate = ate_rmse(est, gt)
     last_err = float(np.linalg.norm(centre(traj[-1][2]) - centre(
         np.asarray(poses_gt[fids[-1]], np.float64) @ np.linalg.inv(np.asarray(poses_gt[0], np.float64)))))
-    out = {"package": args.package, "scene": "loop-circuit" if args.loop else args.scene,
-           "system": True, "loop": args.loop, "pipelined": args.pipelined,
+    st = slam.tracker.map
+    scene = "loop-circuit" if args.loop else args.scene
+    if args.scene == "longrun":
+        scene = f"longrun-{args.size}"
+    out = {"package": args.package, "scene": scene,
+           "system": True, "loop": loop_on(args), "pipelined": args.pipelined,
            "device": args.device if args.package == "torch" else "cpu", "frames": rows,
            "lost": lost, "ate_m": ate, "last_pose_err_m": last_err,
-           "keyframes": int(rows[-1]["n_kf"]), "verifications": recs,
+           "keyframes": int(rows[-1]["n_kf"]), "keyframe_frames": slam.kf_frames,
+           "n_alloc_failed": int(st.n_alloc_failed), "verifications": recs,
            "n_loops_closed": None if lc is None else lc.n_loops_closed,
            "n_gba_merged": None if lc is None else lc.n_gba_merged}
+    if args.scene == "longrun":
+        n_not_ok = sum(1 for r in rows if r["state"] != 1)
+        out["checks"] = longrun_checks(slam.kf_frames, n_not_ok, int(st.n_kf), int(st.n_mp),
+                                       int(st.n_alloc_failed), slam.cfg)
     with open(args.out, "w") as f:
         json.dump(out, f)
     print(f"{args.package} System {out['scene']}: {len(lost) - sum(lost)}/{len(lost)} frames "
           f"tracked, keyframes {out['keyframes']}, ATE {ate:.4f} m (last pose {last_err:.4f} m), "
-          f"loops closed {out['n_loops_closed']}, GBAs merged {out['n_gba_merged']}")
+          f"loops closed {out['n_loops_closed']}, GBAs merged {out['n_gba_merged']}, "
+          f"n_alloc_failed {out['n_alloc_failed']}")
     for r in recs or []:
         print(f"  verification at frame {r['at_frame']}: {r}")
+    if "checks" in out:
+        print(f"  keyframes created at frames {slam.kf_frames}")
+        print(f"  test_longrun's checks: {json.dumps(out['checks'])}")
 
 
 def ate_rmse(est, gt):
@@ -430,8 +526,8 @@ def ate_rmse(est, gt):
 
 
 def cmd_run(args):
-    if args.loop and not args.system:
-        raise SystemExit("--loop needs --system")
+    if (args.loop or args.scene == "longrun") and not args.system:
+        raise SystemExit("--loop and --scene longrun need --system")
     if args.system:
         return cmd_system(args)
     rows, lost, traj, poses_gt, kf_frames = (run_torch if args.package == "torch"
@@ -500,7 +596,10 @@ def main():
     sub = ap.add_subparsers(dest="cmd", required=True)
     r = sub.add_parser("run")
     r.add_argument("--package", required=True, choices=["torch", "jax"])
-    r.add_argument("--scene", default="circuit", choices=["circuit", "orbit"])
+    r.add_argument("--scene", default="circuit", choices=["circuit", "orbit", "longrun"],
+                   help="longrun: tests/test_longrun.py's 520 frames (needs --system)")
+    r.add_argument("--size", default="test", choices=["test", "full"],
+                   help="longrun at the test's 320x240 or at the bench's 640x480")
     r.add_argument("--frames", type=int, default=160)
     r.add_argument("--mapping", action="store_true")
     r.add_argument("--pipelined", action="store_true")
