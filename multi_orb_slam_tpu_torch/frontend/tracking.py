@@ -255,6 +255,7 @@ _FIXED_ONE = float(2 ** 32)
 _FIXED_MAX = float(2 ** 20)
 
 
+@graphs.graphed(static_argnames=("cfg",))
 def update_point_geometry(state: ms.MapState, cfg: SlamConfig) -> ms.MapState:
     """Recompute mean viewing normal and scale-invariance range per point
     (MapPoint::UpdateNormalAndDepth), over the whole map by scatter-adds.

@@ -4,63 +4,103 @@ Counterpart of `multi_orb_slam_tpu/geometry/align.py`.  `umeyama` takes the
 rotation from an SVD, as the reference does.  `umeyama_quat` solves the same
 problem with no SVD, for the RANSAC solvers that run inside CUDA graphs:
 `torch.linalg.svd` reads its convergence flags back to the host, which a
-graph's capture refuses.
+graph's capture refuses.  Its eigen-solver, `jacobi_eigh` (cyclic Jacobi at
+a fixed sweep count, any n), also gives the two-view initializer its null
+vectors and 3x3 SVDs.
 """
 
 from __future__ import annotations
 
 import functools
+import itertools
 
 import torch
 
 from ..utils import graphs
 from . import se3
 
-# the (p, q) pairs of one cyclic Jacobi sweep over a symmetric 4x4 matrix
-_PAIRS = ((0, 1), (0, 2), (0, 3), (1, 2), (1, 3), (2, 3))
 JACOBI_SWEEPS = 5
 
 
+def _rounds(n: int, parallel: bool) -> tuple:
+    """One Jacobi sweep over a symmetric n x n matrix as rounds of (p, q)
+    pairs, the pairs of a round disjoint (so their rotations commute and
+    one product applies them): one pair a round, row by row (cyclic), or
+    the round-robin tournament's n - 1 rounds of n / 2 pairs (parallel)."""
+    if not parallel:
+        return tuple(((p, q),) for p, q in itertools.combinations(range(n), 2))
+    m = n + n % 2               # a bye for odd n
+    rounds = []
+    for r in range(m - 1):
+        pairs = [(r, m - 1)] + [((r + k) % (m - 1), (r - k) % (m - 1))
+                                for k in range(1, m // 2)]
+        rounds.append(tuple(sorted((min(p, q), max(p, q)) for p, q in pairs if max(p, q) < n)))
+    return tuple(rounds)
+
+
 @functools.lru_cache(maxsize=None)
-def _rotation_basis(dtype: torch.dtype, device: torch.device):
-    """Per Jacobi pair k: (E_pp + E_qq, E_pq - E_qp), [6, 4, 4] each, filled
-    in on the device once (a constant, never a copy from the host)."""
-    diag, skew = [], []
-    for p, q in _PAIRS:
-        d = [[0.0] * 4 for _ in range(4)]
-        o = [[0.0] * 4 for _ in range(4)]
-        d[p][p] = d[q][q] = 1.0
-        o[p][q], o[q][p] = 1.0, -1.0
-        diag += [v for row in d for v in row]
-        skew += [v for row in o for v in row]
-    return (graphs.filled(diag, dtype, device).reshape(6, 4, 4),
-            graphs.filled(skew, dtype, device).reshape(6, 4, 4))
+def _rotation_basis(n: int, parallel: bool, dtype: torch.dtype, device: torch.device):
+    """Per round: its pairs' indices p and q [r] and (E_pp + E_qq, E_pq -
+    E_qp) [r, n, n] of each, filled in on the device once (constants, never
+    a copy from the host)."""
+    out = []
+    for pairs in _rounds(n, parallel):
+        diag, skew = [], []
+        for p, q in pairs:
+            d = [[0.0] * n for _ in range(n)]
+            o = [[0.0] * n for _ in range(n)]
+            d[p][p] = d[q][q] = 1.0
+            o[p][q], o[q][p] = 1.0, -1.0
+            diag += [v for row in d for v in row]
+            skew += [v for row in o for v in row]
+        r = len(pairs)
+        out.append((graphs.filled([p for p, _ in pairs], torch.int64, device),
+                    graphs.filled([q for _, q in pairs], torch.int64, device),
+                    graphs.filled(diag, dtype, device).reshape(r, n, n),
+                    graphs.filled(skew, dtype, device).reshape(r, n, n)))
+    return out
 
 
-def top_eigenvector_4(N: torch.Tensor, sweeps: int = JACOBI_SWEEPS) -> torch.Tensor:
-    """Unit eigenvector (..., 4) of the largest eigenvalue of symmetric
-    (..., 4, 4) matrices: `sweeps` cyclic Jacobi sweeps (each rotation
-    zeroes one off-diagonal pair; quadratic convergence), then the column of
-    the largest diagonal entry, the lowest among equals.  A fixed trip count
-    and no `torch.linalg` call, so nothing is read back to the host."""
-    D, O = _rotation_basis(N.dtype, N.device)
+def jacobi_eigh(N: torch.Tensor, sweeps: int,
+                parallel: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+    """Eigen-decomposition of symmetric (..., n, n) matrices by `sweeps`
+    Jacobi sweeps (each rotation zeroes one off-diagonal pair; quadratic
+    convergence), in the cyclic order or in rounds of disjoint pairs
+    (`parallel`: n / 2 rotations a step, for n > 4): (eigenvalues (..., n),
+    in no order, and the eigenvectors as the columns of (..., n, n), a
+    proper rotation).  A fixed trip count and no `torch.linalg` call, so
+    nothing is read back to the host."""
+    n = N.shape[-1]
     A = N
-    eye = torch.eye(4, dtype=N.dtype, device=N.device)
+    eye = torch.eye(n, dtype=N.dtype, device=N.device)
     V = eye.expand(N.shape)
     for _ in range(sweeps):
-        for k, (p, q) in enumerate(_PAIRS):
-            app, aqq, apq = A[..., p, p], A[..., q, q], A[..., p, q]
+        for P, Q, D, O in _rotation_basis(n, parallel, N.dtype, N.device):
+            app, aqq, apq = A[..., P, P], A[..., Q, Q], A[..., P, Q]
             nz = apq != 0
             tau = (aqq - app) / (2.0 * torch.where(nz, apq, 1.0))
             t = torch.where(tau >= 0, 1.0, -1.0) / (torch.abs(tau) + torch.sqrt(1.0 + tau * tau))
             t = torch.where(nz, t, 0.0)
             c = torch.rsqrt(1.0 + t * t)
             s = t * c
-            J = eye + (c - 1.0)[..., None, None] * D[k] + s[..., None, None] * O[k]
+            J = (eye + ((c - 1.0)[..., None, None] * D).sum(-3)
+                 + (s[..., None, None] * O).sum(-3))
             A = J.transpose(-1, -2) @ A @ J
             V = V @ J
-    best = (-torch.diagonal(A, dim1=-2, dim2=-1)).argmin(dim=-1, keepdim=True)
-    return torch.gather(V, -1, best[..., None, :].expand(V.shape[:-1] + (1,)))[..., 0]
+    return torch.diagonal(A, dim1=-2, dim2=-1), V
+
+
+def column(V: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """Column k (...,) of (..., n, n) matrices: (..., n)."""
+    return torch.gather(V, -1, k[..., None, None].expand(V.shape[:-1] + (1,)))[..., 0]
+
+
+def top_eigenvector_4(N: torch.Tensor, sweeps: int = JACOBI_SWEEPS) -> torch.Tensor:
+    """Unit eigenvector (..., 4) of the largest eigenvalue of symmetric
+    (..., 4, 4) matrices (`jacobi_eigh`): the column of the largest
+    eigenvalue, the lowest among equals."""
+    w, V = jacobi_eigh(N, sweeps)
+    return column(V, (-w).argmin(dim=-1))
 
 
 def umeyama_quat(src: torch.Tensor, dst: torch.Tensor,

@@ -32,7 +32,7 @@ import torch
 from ..geometry import align, camera as cam_mod, se3, sim3
 from ..mapping import map_state as ms
 from ..ops import hamming, kernels, orb
-from ..reloc.pnp import sample_triplets  # noqa: F401  (the sampler of the RANSAC)
+from ..reloc.pnp import sample_triplets
 from ..utils import graphs
 
 N_HYP = 128
@@ -93,6 +93,16 @@ def solve_sim3(
     better = n2 >= n_best
     return (torch.where(better, g_ref, g_best), torch.where(better, inl2, inl_best),
             torch.maximum(n2, n_best))
+
+
+def solve_sim3_ransac(generator: torch.Generator, pts_a: torch.Tensor, pts_b: torch.Tensor,
+                      cam_a: torch.Tensor, cam_b: torch.Tensor, valid: torch.Tensor,
+                      T_rc: torch.Tensor, K: torch.Tensor, n_hyp: int = N_HYP,
+                      fix_scale: bool = True, sigma2_px: float = 10.0):
+    """The reference's entry point with a `torch.Generator` in place of its
+    key: `n_hyp` minimal sets drawn (`sample_triplets`), then `solve_sim3`."""
+    tri = sample_triplets(valid, n_hyp, generator)
+    return solve_sim3(tri, pts_a, pts_b, cam_a, cam_b, valid, T_rc, K, fix_scale, sigma2_px)
 
 
 @graphs.graphed(static_argnames=("max_mp", "scale_factor", "n_levels", "th"))

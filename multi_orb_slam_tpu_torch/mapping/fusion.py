@@ -22,6 +22,11 @@ at once).
 Where the reference leaves a scatter's winner open (two conflicts in one
 step that name the same loser with different winners), the conflict that
 comes last in feature order wins (`map_state.scatter_set_last`).
+
+`fuse_into_kf`, `fuse_into_kfs` and `fuse_neighbors` are `graphs.graphed`
+with the reference jit's static arguments (`cfg`; `cfg` and `n_neighbors`):
+on the card one CUDA graph replay a call, the target slot traced.  Inside
+the mapping stage's graph they run inline.
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ import torch
 from ..config import SlamConfig
 from ..geometry import camera as cam_mod
 from ..ops import hamming, search
+from ..utils import graphs
 from . import map_state as ms
 
 
@@ -175,6 +181,7 @@ def _group_start(state: ms.MapState):
             ms.mp_weighted_obs(state))
 
 
+@graphs.graphed(static_argnames=("cfg",))
 def fuse_into_kf(state: ms.MapState, src_mask: torch.Tensor, kf_t,
                  cfg: SlamConfig, calib: cam_mod.CameraParams):
     """Project masked points [M] into keyframe kf_t; add observations /
@@ -185,6 +192,7 @@ def fuse_into_kf(state: ms.MapState, src_mask: torch.Tensor, kf_t,
     return _finalize_merges(state, rep), n_merged
 
 
+@graphs.graphed(static_argnames=("cfg",))
 def fuse_into_kfs(state: ms.MapState, src_mask: torch.Tensor, kf_slots: torch.Tensor,
                   cfg: SlamConfig, calib: cam_mod.CameraParams):
     """Fuse masked points [M] into a batch of keyframes `kf_slots` [Kc]
@@ -201,6 +209,7 @@ def fuse_into_kfs(state: ms.MapState, src_mask: torch.Tensor, kf_slots: torch.Te
     return _finalize_merges(state, rep), total
 
 
+@graphs.graphed(static_argnames=("cfg", "n_neighbors"))
 def fuse_neighbors(state: ms.MapState, kf_slot, calib: cam_mod.CameraParams,
                    cfg: SlamConfig, n_neighbors: int = 5):
     """Two-direction fusion with the top covisible neighbours: this

@@ -23,7 +23,12 @@ window bucket static: on the card one CUDA graph, captured once per
 the body itself.
 Without `covis_hint` (and with `ba_adaptive`) the window's covisible count
 is read back first; a stage switched off takes the stepwise path, whose
-host `if`s read `n_kf`, as the reference's does.
+host `if`s read `n_kf`, as the reference's does.  Each function of that
+path is graphed as the reference jits it (`cull_map_points`,
+`triangulation.triangulate_new_points`, `fusion.fuse_neighbors`,
+`build_local_problem`, `solve_ba_jit`, `apply_ba_result`, `cull_keyframes`,
+`tracking.update_point_geometry`): one replay each on the card, the slots
+and the frame id traced; inside `_mapping_stage_fused` they run inline.
 
 Repeated scatter indices only meet on a dump slot (K-1, M-1, or a column
 past the end), where every write carries the same value, so each
@@ -72,6 +77,7 @@ def _row_mask(state: ms.MapState, ks: torch.Tensor) -> torch.Tensor:
     return ms.scatter_max_bool(M, torch.where(obs >= 0, obs, M - 1), obs >= 0)
 
 
+@graphs.graphed(static_argnames=("cfg", "n_free", "n_fixed"))
 def build_local_problem(state: ms.MapState, center_kf, cfg: SlamConfig,
                         n_free: int = 12, n_fixed: int = 12) -> local_ba.BAProblem:
     """Extract the covisibility window around `center_kf` as a BAProblem."""
@@ -153,6 +159,7 @@ def build_local_problem(state: ms.MapState, center_kf, cfg: SlamConfig,
     )
 
 
+@graphs.graphed(static_argnames=("cfg",))
 def apply_ba_result(state: ms.MapState, prob: local_ba.BAProblem,
                     kf_Tcw_new: torch.Tensor, mp_pos_new: torch.Tensor,
                     obs_inlier: torch.Tensor, cfg: SlamConfig) -> ms.MapState:
@@ -181,6 +188,14 @@ def apply_ba_result(state: ms.MapState, prob: local_ba.BAProblem,
     return state._replace(kf_Tcw=kf_Tcw, mp_pos=mp_pos, kf_mp=kf_mp)
 
 
+@graphs.graphed(static_argnames=("phases",))
+def solve_ba_jit(prob: local_ba.BAProblem, T_rc: torch.Tensor, K: torch.Tensor,
+                 bf: torch.Tensor, phases: tuple = ((5, True), (10, False))):
+    """`local_ba.solve_ba` with its LM schedule static: (kf_Tcw, mp_pos,
+    obs_inlier)."""
+    return local_ba.solve_ba(prob, T_rc, K, bf, phases=phases)
+
+
 def run_local_ba(state: ms.MapState, center_kf, calib: cam_mod.CameraParams,
                  cfg: SlamConfig, n_free: int = 12, n_fixed: int = 12,
                  phases: tuple = ((5, True), (8, False))) -> ms.MapState:
@@ -188,8 +203,7 @@ def run_local_ba(state: ms.MapState, center_kf, calib: cam_mod.CameraParams,
     with _stage("build_problem"):
         prob = build_local_problem(state, center_kf, cfg, n_free, n_fixed)
     with _stage("solve"):
-        kf_Tcw, mp_pos, inlier = local_ba.solve_ba(
-            prob, calib.T_rc, calib.K, calib.bf, phases=phases)
+        kf_Tcw, mp_pos, inlier = solve_ba_jit(prob, calib.T_rc, calib.K, calib.bf, phases)
     with _stage("apply"):
         return apply_ba_result(state, prob, kf_Tcw, mp_pos, inlier, cfg)
 
@@ -314,6 +328,7 @@ def covis_kf_count(state: ms.MapState, kf_slot) -> torch.Tensor:
     return (share >= 15).sum(dtype=torch.int32)
 
 
+@graphs.graphed(static_argnames=("cfg",))
 def cull_map_points(state: ms.MapState, current_frame_id, cfg: SlamConfig) -> ms.MapState:
     """Remove low-quality recent points, with age measured in keyframes
     inserted since creation: found/visible ratio < 0.25, or >= 2 keyframes
@@ -338,6 +353,7 @@ def cull_map_points(state: ms.MapState, current_frame_id, cfg: SlamConfig) -> ms
         n_mp=state.n_mp - kill.sum(dtype=torch.int32))
 
 
+@graphs.graphed(static_argnames=("cfg", "max_victims"))
 def cull_keyframes(state: ms.MapState, center_kf, cfg: SlamConfig,
                    max_victims: int = 6) -> ms.MapState:
     """Discard redundant local keyframes (multi-victim, octave-aware).

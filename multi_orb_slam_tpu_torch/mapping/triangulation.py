@@ -28,6 +28,7 @@ from ..config import SlamConfig
 from ..geometry import camera as cam_mod
 from ..geometry import se3
 from ..ops import hamming
+from ..utils import graphs
 from . import map_state as ms
 
 
@@ -220,6 +221,7 @@ def triangulate_pair(state: ms.MapState, kf_a, kf_b, cfg: SlamConfig,
     return new_state, n_created
 
 
+@graphs.graphed(static_argnames=("cfg", "n_neighbors"))
 def triangulate_new_points(state: ms.MapState, kf_slot,
                            calib: cam_mod.CameraParams, cfg: SlamConfig,
                            n_neighbors: int = 5):

@@ -15,6 +15,13 @@ Extraction is split into `build_pyramid` and `extract_from_pyramid` so a
 test can feed the reference's pyramid in and demand exact keypoints.
 Everything is batched over a leading camera axis: images [C, H, W] give
 features [C, F, ...].
+
+The reference's per-level extractor (`extract_orb_reference`, one image,
+level by level: `fast_score` with the ring wrapping at the image border,
+`detect_level`, `ic_angles`, `gaussian_blur7` and `brief_descriptors` on
+the rotated pattern sampled pixel by pixel) is here too, in plain PyTorch
+and graphed (`cfg` static) as the reference jits it; no path runs it, and
+its FAST is not the kernel's (which reads zeros past the border).
 """
 
 from __future__ import annotations
@@ -26,6 +33,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..utils import graphs
 from . import kernels
 from .hamming import top_k
 
@@ -77,6 +85,11 @@ def scale_table(scale_factor: float, n_levels: int, device: torch.device) -> tor
 def scale_factors(cfg: ORBConfig, device=None) -> torch.Tensor:
     """Per-level scale factors sigma (the cached table: do not write to it)."""
     return scale_table(cfg.scale_factor, cfg.n_levels, torch.device(device or "cpu"))
+
+
+def level_sigma2(cfg: ORBConfig, device=None) -> torch.Tensor:
+    """Per-level sigma^2 used in chi2 weighting (reference mvLevelSigma2)."""
+    return scale_factors(cfg, device) ** 2
 
 
 # ---------------------------------------------------------------------------
@@ -140,6 +153,11 @@ _BRIEF_POS = np.argmax(ROT_BRIEF_W, axis=1)
 def _brief_index(device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
     return (torch.from_numpy(_BRIEF_NEG).to(device),
             torch.from_numpy(_BRIEF_POS).to(device))
+
+
+@functools.lru_cache(maxsize=None)
+def _brief_pattern(device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(BRIEF_PATTERN).to(device)
 
 
 # ---------------------------------------------------------------------------
@@ -217,21 +235,34 @@ def _gauss7(sigma: float = 2.0) -> list[float]:
     return [float(v) for v in k.astype(np.float32)]
 
 
-def _blur_crop(patches: torch.Tensor, crop: int) -> torch.Tensor:
-    """Separable 7x7 Gaussian of [N, S, S] patches, keeping the
-    [S - 2*crop]^2 centre (crop >= 3, so no padding is ever read)."""
-    k = _gauss7()
-    S = patches.shape[-1]
-    n = S - 2 * crop
+def _blur_crop(x: torch.Tensor, crop: int, sigma: float = 2.0) -> torch.Tensor:
+    """Separable 7x7 Gaussian of [..., H, W] images (rows, then columns),
+    keeping the [H - 2*crop, W - 2*crop] centre (crop >= 3, so no padding
+    is ever read)."""
+    k = _gauss7(sigma)
+    nr, nc = x.shape[-2] - 2 * crop, x.shape[-1] - 2 * crop
     a = None
     for i in range(7):   # rows
-        t = k[i] * patches[:, crop - 3 + i:crop - 3 + i + n, :]
+        t = k[i] * x[..., crop - 3 + i:crop - 3 + i + nr, :]
         a = t if a is None else a + t
     b = None
     for i in range(7):   # columns
-        t = k[i] * a[:, :, crop - 3 + i:crop - 3 + i + n]
+        t = k[i] * a[..., :, crop - 3 + i:crop - 3 + i + nc]
         b = t if b is None else b + t
     return b
+
+
+def _ic_angle(patches: torch.Tensor) -> torch.Tensor:
+    """Intensity-centroid angle (reference IC_Angle, ORBextractor.cc:77-104)
+    of [N, S, S] patches centred on their keypoints, over the circle of
+    radius `_PATCH_R`."""
+    r = (patches.shape[-1] - 1) // 2
+    df = torch.arange(-r, r + 1, device=patches.device, dtype=torch.float32)
+    circ = (df[:, None] ** 2 + df[None, :] ** 2) <= _PATCH_R * _PATCH_R
+    pc = patches * circ[None]
+    m10 = torch.sum(pc * df[None, None, :], dim=(1, 2))
+    m01 = torch.sum(pc * df[None, :, None], dim=(1, 2))
+    return torch.atan2(m01, m10)
 
 
 def extract_from_pyramid(pyr: list[torch.Tensor], cfg: ORBConfig = ORBConfig()) -> Features:
@@ -303,15 +334,8 @@ def extract_from_pyramid(pyr: list[torch.Tensor], cfg: ORBConfig = ORBConfig()) 
     idx = torch.stack([img_id, yi0, xi0], dim=-1).reshape(C * F, 3).contiguous()
     patches45 = kernels.gather_patches(canvas, idx, side_b)   # [C*F, 45, 45]
 
-    r = DESC_PATCH_R
-    side = 2 * r + 1
-    raw39 = patches45[:, 3:3 + side, 3:3 + side]
-    df = torch.arange(-r, r + 1, device=dev, dtype=torch.float32)
-    circ = (df[:, None] ** 2 + df[None, :] ** 2) <= _PATCH_R * _PATCH_R
-    pc = raw39 * circ[None]
-    m10 = torch.sum(pc * df[None, None, :], dim=(1, 2))
-    m01 = torch.sum(pc * df[None, :, None], dim=(1, 2))
-    angle = torch.atan2(m01, m10)
+    side = 2 * DESC_PATCH_R + 1
+    angle = _ic_angle(patches45[:, 3:3 + side, 3:3 + side])
 
     # blur the patches; the reference casts them to bf16 before the
     # rotation-bin product, and so does the port (bits flip near 0 without)
@@ -337,10 +361,163 @@ def extract_from_pyramid(pyr: list[torch.Tensor], cfg: ORBConfig = ORBConfig()) 
     )
 
 
+@graphs.graphed(static_argnames=("cfg",))
 def extract_orb(img: torch.Tensor, cfg: ORBConfig = ORBConfig()) -> Features:
     """ORB features of one image [H, W] (-> [F, ...]) or a rig [C, H, W]
-    (-> [C, F, ...])."""
+    (-> [C, F, ...]).  Graphed (`cfg` static) as the reference jits it; in
+    `frame.build_frame`'s graphs it runs inline."""
     if img.dim() == 2:
         f = extract_from_pyramid(build_pyramid(img[None], cfg), cfg)
         return Features(*(t[0] for t in f))
     return extract_from_pyramid(build_pyramid(img, cfg), cfg)
+
+
+# ---------------------------------------------------------------------------
+# The reference's per-level extractor
+# ---------------------------------------------------------------------------
+
+
+def fast_score(img: torch.Tensor) -> torch.Tensor:
+    """Segment-test corner strength of every pixel of [..., H, W] images:
+    the largest t for which the pixel passes the FAST-9/16 test, with the
+    ring read through `torch.roll` (it wraps at the image border, as the
+    reference's `jnp.roll`; the kernel reads zeros there instead)."""
+    ds = [torch.roll(img, (-dy, -dx), dims=(-2, -1)) - img for dy, dx in kernels.FAST_OFFSETS]
+    return kernels.fast_arcs_loop(ds)
+
+
+def _maxpool3x3(x: torch.Tensor) -> torch.Tensor:
+    """3x3 maximum of [..., H, W] with -inf past the border."""
+    lead = x.shape[:-2]
+    out = torch.nn.functional.max_pool2d(x.reshape((-1, 1) + x.shape[-2:]), 3, stride=1,
+                                         padding=1)
+    return out.reshape(lead + x.shape[-2:])
+
+
+def detect_level(img_l: torch.Tensor, n_target: int, cfg: ORBConfig):
+    """Up to n_target FAST corners of one [H, W] pyramid level: 3x3 non-max
+    suppression, the min threshold, the border margin, strong corners
+    ranked above the rest, per-cell top-K, then the global top-N.  Returns
+    (xy [n_target, 2] float32 level coords, response [n_target], valid
+    [n_target] bool)."""
+    h, w = img_l.shape
+    dev = img_l.device
+    zero = torch.zeros((), dtype=img_l.dtype, device=dev)
+    score = fast_score(img_l)
+    score = torch.where(score >= _maxpool3x3(score), score, zero)
+    score = torch.where(score >= cfg.fast_threshold_min, score, zero)
+    m = cfg.edge_margin
+    yy = torch.arange(h, device=dev)[:, None]
+    xx = torch.arange(w, device=dev)[None, :]
+    inb = (yy >= m) & (yy < h - m) & (xx >= m) & (xx < w - m)
+    score = torch.where(inb, score, zero)
+    rank = torch.where(score >= cfg.fast_threshold, score + 1e4, score)
+
+    cs = cfg.cell_size
+    ph, pw = (cs - h % cs) % cs, (cs - w % cs) % cs
+    rank_p = torch.nn.functional.pad(rank, (0, pw, 0, ph))
+    ncy, ncx = (h + ph) // cs, (w + pw) // cs
+    cells = rank_p.reshape(ncy, cs, ncx, cs).permute(0, 2, 1, 3).reshape(ncy * ncx, cs * cs)
+    cell_vals, cell_idx = top_k(cells, min(cfg.cell_top_k, cs * cs))
+    cell_ids = torch.arange(ncy * ncx, device=dev)[:, None]
+    flat_y = ((cell_ids // ncx) * cs + cell_idx // cs).reshape(-1)
+    flat_x = ((cell_ids % ncx) * cs + cell_idx % cs).reshape(-1)
+    flat_vals = cell_vals.reshape(-1)
+    n_take = min(n_target, flat_vals.shape[0])
+    top_vals, top_i = top_k(flat_vals, n_take)
+    xy = torch.stack([flat_x[top_i], flat_y[top_i]], dim=-1).to(torch.float32)
+    resp = torch.where(top_vals >= 1e4, top_vals - 1e4, top_vals)
+    valid = top_vals > 0.0
+    pad = n_target - n_take
+    if pad:
+        xy = torch.cat([xy, xy.new_zeros((pad, 2))])
+        resp = torch.cat([resp, resp.new_zeros(pad)])
+        valid = torch.cat([valid, valid.new_zeros(pad)])
+    return xy, resp, valid
+
+
+def _gather_patches(img: torch.Tensor, xy: torch.Tensor, radius: int) -> torch.Tensor:
+    """[N, 2r+1, 2r+1] patches of [H, W] around the integer parts of xy,
+    each pixel clipped into the image."""
+    h, w = img.shape
+    d = torch.arange(-radius, radius + 1, device=img.device)
+    y = (xy[:, 1].to(torch.int32)[:, None, None] + d[None, :, None]).clamp(0, h - 1)
+    x = (xy[:, 0].to(torch.int32)[:, None, None] + d[None, None, :]).clamp(0, w - 1)
+    return img[y.long(), x.long()]
+
+
+def ic_angles(img: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
+    """Intensity-centroid orientation in radians of keypoints xy [N, 2] of
+    an [H, W] image (circular patch of radius 15)."""
+    return _ic_angle(_gather_patches(img, xy, _PATCH_R))
+
+
+def gaussian_blur7(img: torch.Tensor, sigma: float = 2.0) -> torch.Tensor:
+    """Separable 7x7 Gaussian of [..., H, W] images, the border replicated
+    (reference GaussianBlur(..., Size(7, 7), 2, 2), ORBextractor.cc:1082)."""
+    lead = img.shape[:-2]
+    x = torch.nn.functional.pad(img.reshape((-1,) + img.shape[-2:]), (3, 3, 3, 3),
+                                mode="replicate")
+    return _blur_crop(x, 3, sigma).reshape(lead + img.shape[-2:])
+
+
+def gaussian_blur7_batched(imgs: torch.Tensor, sigma: float = 2.0) -> torch.Tensor:
+    """[B, H, W] separable 7x7 Gaussian, zeros past the border."""
+    return _blur_crop(torch.nn.functional.pad(imgs, (3, 3, 3, 3)), 3, sigma)
+
+
+def brief_descriptors(img_blur: torch.Tensor, xy: torch.Tensor, angles: torch.Tensor,
+                      pattern=None) -> torch.Tensor:
+    """Steered BRIEF: the pattern [256, 4] (default `BRIEF_PATTERN`) rotated
+    by each keypoint's angle, each point sampled at the nearest pixel of the
+    blurred [H, W] image, bit = first < second.  Returns [N, 8] int32 (the
+    32 bits of each word, as `Features.desc` holds them)."""
+    h, w = img_blur.shape
+    dev = img_blur.device
+    pat = (_brief_pattern(dev) if pattern is None
+           else torch.as_tensor(pattern, dtype=torch.float32, device=dev))
+    ca, sa = torch.cos(angles)[:, None], torch.sin(angles)[:, None]
+    x0, y0 = xy[:, 0:1], xy[:, 1:2]
+
+    def sample(px, py):
+        rx = ca * px[None] - sa * py[None]
+        ry = sa * px[None] + ca * py[None]
+        xi = torch.round(x0 + rx).to(torch.int32).clamp(0, w - 1)
+        yi = torch.round(y0 + ry).to(torch.int32).clamp(0, h - 1)
+        return img_blur[yi.long(), xi.long()]              # [N, 256]
+
+    bits = (sample(pat[:, 0], pat[:, 1]) < sample(pat[:, 2], pat[:, 3])).to(torch.int64)
+    shifts = torch.arange(32, device=dev, dtype=torch.int64)
+    words = torch.sum(bits.reshape(-1, 8, 32) << shifts, dim=-1)
+    return torch.where(words >= 2 ** 31, words - 2 ** 32, words).to(torch.int32)
+
+
+def extract_reference_from_pyramid(pyr: list[torch.Tensor],
+                                   cfg: ORBConfig = ORBConfig()) -> Features:
+    """The per-level extraction of [H_l, W_l] pyramid levels -> Features
+    [F, ...]: each level detected, oriented, blurred and described on its
+    own."""
+    counts = level_feature_counts(cfg)
+    dev = pyr[0].device
+    out = []
+    for lvl in range(cfg.n_levels):
+        img_l, n_l = pyr[lvl], counts[lvl]
+        if n_l == 0:
+            continue
+        xy, resp, valid = detect_level(img_l, n_l, cfg)
+        ang = ic_angles(img_l, xy)
+        desc = brief_descriptors(gaussian_blur7(img_l), xy, ang)
+        scale = float(np.float32(cfg.scale_factor ** lvl))
+        out.append((xy * scale, torch.full((n_l,), lvl, dtype=torch.int32, device=dev),
+                    ang, resp, desc, valid))
+    xy, level, angle, response, desc, valid = (torch.cat(f) for f in zip(*out))
+    return Features(xy=xy, xy_und=xy, level=level, angle=angle, response=response,
+                    desc=desc, valid=valid)
+
+
+@graphs.graphed(static_argnames=("cfg",))
+def extract_orb_reference(img: torch.Tensor, cfg: ORBConfig = ORBConfig()) -> Features:
+    """Per-level ORB extraction of one [H, W] image -> Features [F, ...]
+    (the reference's readable form; `extract_orb` computes the same
+    features with every level batched on one canvas)."""
+    return extract_reference_from_pyramid(build_pyramid(img, cfg), cfg)

@@ -317,6 +317,13 @@ def run_global_ba_arrays(state_arrays, calib_arrays, kf_free, cfg: SlamConfig,
     return Tcw, pos
 
 
+def run_global_ba_jit(state_arrays, calib_arrays, free_spec, cfg: SlamConfig,
+                      n_outer: int = 10):
+    """The reference's name and signature for `run_global_ba_arrays`
+    (`free_spec` is the [K] free-keyframe mask)."""
+    return run_global_ba_arrays(state_arrays, calib_arrays, free_spec, cfg, n_outer)
+
+
 def global_ba_arrays(state, calib, cfg: SlamConfig):
     """`run_global_ba_arrays`' (state_arrays, calib_arrays, kf_free) of a
     map: every valid keyframe free but slot 0, invalid feature slots masked

@@ -29,6 +29,16 @@ from ..geometry import sim3
 from ..utils import graphs
 
 
+def edge_residual(g_all: torch.Tensor, xi_all: torch.Tensor, i, j,
+                  meas: torch.Tensor) -> torch.Tensor:
+    """e = log(meas * S_i * S_j^-1) with S = exp(xi) o g, S_i and S_j taken
+    at rows i and j of the last-but-one axis of g_all (..., K, 8) and
+    xi_all (..., K, 7)."""
+    Si = sim3.compose(sim3.exp(xi_all[..., i, :]), g_all[..., i, :])
+    Sj = sim3.compose(sim3.exp(xi_all[..., j, :]), g_all[..., j, :])
+    return sim3.log(sim3.compose(meas, sim3.compose(Si, sim3.inverse(Sj))))
+
+
 @graphs.graphed(static_argnames=("n_iters", "fix_scale"))
 def optimize_essential_graph(
     g_init: torch.Tensor,     # [K, 8] Sim3 world->kf per slot
@@ -52,11 +62,9 @@ def optimize_essential_graph(
 
     def r_of(x, gi, gj):
         """Edge residuals [..., E, 7] at the tangents x [..., E, 14] of the
-        two endpoints."""
+        two endpoints (each edge's two poses as rows 0 and 1)."""
         x2 = x.reshape(x.shape[:-1] + (2, 7))
-        Si = sim3.compose(sim3.exp(x2[..., 0, :] * dof), gi)
-        Sj = sim3.compose(sim3.exp(x2[..., 1, :] * dof), gj)
-        return sim3.log(sim3.compose(e_meas, sim3.compose(Si, sim3.inverse(Sj))))
+        return edge_residual(torch.stack([gi, gj], dim=-2), x2 * dof, 0, 1, e_meas)
 
     def residuals(g_all):
         return r_of(zeros, g_all[ei], g_all[ej])

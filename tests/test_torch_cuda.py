@@ -1246,6 +1246,7 @@ LOOP_GRAPHED = {   # name: (module path, check: None = bit-equal)
     "optimize_essential_graph": ("optim.pose_graph", _poses_close),
     "run_global_ba_arrays": ("optim.global_ba", _gba_close),
     "merge_gba": ("loop.loop_closing", None),
+    "fuse_into_kfs": ("mapping.fusion", None),
 }
 
 
@@ -1358,6 +1359,10 @@ def _perturbed_loop_args(name, args):
         a[0] = moved(a[0], 0.02)
     elif name == "optimize_essential_graph":
         a[0] = torch.where(a[1][:, None], moved(a[0], 0.01), a[0])
+    elif name == "fuse_into_kfs":           # every other loop point left out
+        mask = a[1].clone()
+        mask[torch.nonzero(mask)[::2, 0]] = False
+        a[1] = mask
     elif name == "run_global_ba_arrays":
         st = list(a[0])
         st[5] = st[5] + 0.01 * torch.randn(st[5].shape, generator=gen, device="cuda")
@@ -1492,3 +1497,127 @@ def test_cuda_overflow_run_on_graphs_is_the_eager_run():
     print(f"overflow run: states {''.join(map(str, sg))}, n_mp {int(mg.n_mp)}, n_alloc_failed "
           f"{int(mg.n_alloc_failed)}; relief {M - int(full.n_mp)} -> "
           f"{M - int(out['graphs'].n_mp)} free slots, graphs the eager bits")
+
+
+# ---------------------------------------------------------------------------
+# the stepwise mapping stage, the two-view initializer and the reference
+# extractor on graphs
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("off", ["do_triangulate", "do_fuse", "do_ba", "do_cull"])
+def test_cuda_stepwise_mapping_stage_on_graphs_is_the_eager_stage(off):
+    """The small scene tracked on the card with the mapping stage; the map
+    that went into its last stage through `run_mapping_stage` with one
+    stage switched off (the stepwise path: each stage a replay of its own
+    entry), on graphs and under `graphs.eager()`: every field the same
+    bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import contextlib
+
+    from multi_orb_slam_tpu_torch.frontend import tracking
+    from multi_orb_slam_tpu_torch.mapping import local_mapping
+    from multi_orb_slam_tpu_torch.utils import graphs
+
+    cfg, calib, seq = _small_scene()
+    tracker = tracking.Tracker(calib, cfg, device="cuda")
+    snaps = []
+
+    def cb(k):
+        snaps.append((graphs.clone(tracker.map), k, tracker.frame_id))
+        return local_mapping.run_mapping_stage(tracker.map, k, tracker.frame_id,
+                                               tracker.calib, cfg)
+
+    tracker.kf_inserted_cb = cb
+    for g, d in zip(seq.grays, seq.depths):
+        tracker.process(g, d)
+    st, k, fid = snaps[-1]
+    assert int(st.n_kf) > 2
+    out = {}
+    for mode in ("eager", "graphs", "again"):
+        with graphs.eager() if mode == "eager" else contextlib.nullcontext():
+            out[mode] = local_mapping.run_mapping_stage(graphs.clone(st), k, fid, tracker.calib,
+                                                        cfg, **{off: False})
+    for mode in ("graphs", "again"):
+        for name, a, b in zip(st._fields, out[mode], out["eager"]):
+            assert torch.equal(a, b), (off, mode, name)
+    print(f"stepwise mapping stage with {off}=False: graphs the eager bits")
+
+
+def _two_view_problem(planar, n=300, seed=0):
+    """`tests/test_mono_init.py`'s two-view problems (K 500/500/320/240, a
+    general scene or a rough tilted plane, 0.3 px noise, 10% outliers),
+    with the port's own rotation: (uv1, uv2, mask, K) on the card."""
+    from multi_orb_slam_tpu_torch.geometry import se3
+
+    K = np.array([500.0, 500.0, 320.0, 240.0], np.float32)
+    rng = np.random.RandomState(seed)
+    X = rng.uniform([-2, -1.5, 4.0], [2, 1.5, 8.0], (n, 3)).astype(np.float32)
+    if planar:
+        X[:, 2] = 6.0 + 0.3 * X[:, 0] + 0.1 * X[:, 1] + rng.randn(n).astype(np.float32) * 0.05
+    R = se3.so3_exp(torch.tensor([0.02, 0.12, -0.03])).numpy()
+    t = np.array([0.4, 0.05, 0.1], np.float32) / np.linalg.norm([0.4, 0.05, 0.1])
+
+    def proj(R_, t_):
+        Xc = X @ R_.T + t_
+        return (np.stack([K[0] * Xc[:, 0] / Xc[:, 2] + K[2], K[1] * Xc[:, 1] / Xc[:, 2] + K[3]],
+                         -1), Xc[:, 2])
+
+    uv1, z1 = proj(np.eye(3, dtype=np.float32), np.zeros(3, np.float32))
+    uv2, z2 = proj(R, t.astype(np.float32))
+    uv1 += rng.randn(n, 2) * 0.3
+    uv2 += rng.randn(n, 2) * 0.3
+    out = rng.choice(n, n // 10, replace=False)
+    uv2[out] += rng.uniform(20, 80, (len(out), 2)) * rng.choice([-1, 1], (len(out), 2))
+    c = lambda a, dt=torch.float32: torch.from_numpy(np.asarray(a)).to("cuda", dt)  # noqa: E731
+    return c(uv1), c(uv2), c((z1 > 0) & (z2 > 0), torch.bool), c(K)
+
+
+@pytest.mark.cuda
+def test_cuda_solve_two_view_replays_are_the_eager_calls():
+    """`solve_two_view` on a general and a planar scene of one signature
+    (300 correspondences, 256 hypotheses drawn on the CPU): each replay the
+    eager call's bits (`_hold_replays`), the general scene through the
+    fundamental and the plane through the homography, and the card's
+    decisions and R those of the CPU run."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from multi_orb_slam_tpu_torch.frontend import initializer
+
+    args = []
+    for planar, seed in ((False, 0), (True, 1)):
+        uv1, uv2, mask, K = _two_view_problem(planar)
+        idx_h, idx_f = initializer.sample_hypotheses(mask.cpu(), 256,
+                                                     torch.Generator().manual_seed(seed))
+        args.append((uv1, uv2, mask, idx_h.cuda(), idx_f.cuda(), K))
+    _hold_replays("solve_two_view", initializer.solve_two_view, args[0], args[1])
+    for planar, a in zip((False, True), args):
+        card = initializer.solve_two_view(*a)
+        cpu = initializer.solve_two_view(*(x.cpu() for x in a))
+        assert bool(card.ok) and bool(card.used_homography) == planar
+        assert bool(cpu.ok) == bool(card.ok)
+        assert bool(cpu.used_homography) == bool(card.used_homography)
+        assert float((card.R.cpu() - cpu.R).abs().max()) < 1e-4
+
+
+@pytest.mark.cuda
+def test_cuda_extract_orb_reference_replays_are_the_eager_calls():
+    """The reference extractor on two rendered 320x240 images of one
+    signature: each replay the eager call's bits; the card's keypoints those
+    of the CPU run on >= 99% of them."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    cfg, calib, seq = _small_scene()
+    imgs = [torch.from_numpy(np.asarray(seq.grays[i][0], np.float32)).cuda() for i in (0, 6)]
+    fn = orb.extract_orb_reference
+    _hold_replays("extract_orb_reference", fn, (imgs[0], cfg.orb), (imgs[1], cfg.orb))
+    card, cpu = fn(imgs[0], cfg.orb), fn(imgs[0].cpu(), cfg.orb)
+
+    def keys(f):
+        xy, lvl, ok = f.xy.cpu().numpy(), f.level.cpu().numpy(), f.valid.cpu().numpy()
+        return set(map(tuple, np.concatenate([xy, lvl[:, None]], 1)[ok].tolist()))
+
+    kc, kg = keys(cpu), keys(card)
+    assert len(kc & kg) >= 0.99 * len(kc) > 100

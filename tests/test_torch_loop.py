@@ -22,8 +22,9 @@ on the CPU.  Tolerances:
   (`LoopCloser.triplet_source`): the same loop keyframe and the same total.
 
 The loop stage's graphed functions (`word_match_stage`, `search_by_sim3`,
-`guided_count_stage`, the global BA's `run_global_ba_arrays`, `merge_gba`:
-one CUDA graph replay a call on the card) leave their inputs bit-unchanged
+`guided_count_stage`, the global BA's `run_global_ba_arrays`, `merge_gba`,
+and the loop fusion `fuse_into_kfs` on `_correct_loop`'s inputs: one CUDA
+graph replay a call on the card) leave their inputs bit-unchanged
 and read nothing back through their entries; two keyframe pairs (traced
 slots) or two `old_kf` snapshots go through one entry; and `_compute_sim3`,
 `_correct_loop` and the merge with every graphed call sent through its
@@ -48,6 +49,7 @@ from multi_orb_slam_tpu_torch.config import SlamConfig as TCfg
 from multi_orb_slam_tpu_torch.geometry import camera as t_cam
 from multi_orb_slam_tpu_torch.loop import loop_closing as t_lc
 from multi_orb_slam_tpu_torch.loop import sim3_solver as t_solver
+from multi_orb_slam_tpu_torch.mapping import fusion as t_fus
 from multi_orb_slam_tpu_torch.mapping import map_state as t_ms
 from multi_orb_slam_tpu_torch.optim import global_ba as t_gba
 from multi_orb_slam_tpu_torch.placerec import vocabulary as t_voc
@@ -185,6 +187,27 @@ def test_global_ba_on_the_perturbed_map(tracked):
     assert held.sum() > 300
     np.testing.assert_allclose(out_t.mp_pos.numpy()[held], np.asarray(out_j.mp_pos)[held],
                                atol=1e-3)
+
+
+def test_run_global_ba_jit_on_the_reference_arrays(tracked):
+    """`run_global_ba_jit` on the arrays of the perturbed map (3 outer
+    iterations), through both packages: poses to 1e-4, points that two or
+    more observations hold to 1e-3 m, as `run_global_ba` is held."""
+    st, cfg, calib = _perturbed(tracked["state"]), tracked["cfg"], tracked["calib"]
+    state_arrays, calib_arrays, kf_free = t_gba.global_ba_arrays(
+        _state(st), convert.to_torch(calib, t_cam.CameraParams, "cpu"), _port_cfg(cfg))
+    as_j = lambda xs: tuple(jnp.asarray(x.numpy()) for x in xs)  # noqa: E731
+    Tj, pj = j_gba.run_global_ba_jit(as_j(state_arrays), as_j(calib_arrays),
+                                     jnp.asarray(kf_free.numpy()), cfg, 3)
+    Tt, pt = t_gba.run_global_ba_jit(state_arrays, calib_arrays, kf_free, _port_cfg(cfg), 3)
+    valid = np.asarray(st.kf_valid)
+    np.testing.assert_allclose(Tt.numpy()[valid], np.asarray(Tj)[valid], atol=1e-4)
+    assert np.abs(np.asarray(Tj)[valid] - np.asarray(st.kf_Tcw)[valid]).max() > 1e-2
+    kf_mp = state_arrays[2].numpy()
+    n_obs = np.bincount(kf_mp[(kf_mp >= 0) & valid[:, None, None]], minlength=st.mp_pos.shape[0])
+    held = np.asarray(st.mp_valid) & (n_obs >= 2)
+    assert held.sum() > 300
+    np.testing.assert_allclose(pt.numpy()[held], np.asarray(pj)[held], atol=1e-3)
 
 
 # ---------------------------------------------------------------------------
@@ -438,7 +461,7 @@ def test_loop_correction_moves_the_live_pose(monkeypatch):
 # ---------------------------------------------------------------------------
 
 LOOP_GRAPHED = ("word_match_stage", "search_by_sim3", "guided_count_stage",
-                "run_global_ba_arrays", "merge_gba")
+                "run_global_ba_arrays", "merge_gba", "fuse_into_kfs")
 
 
 @pytest.fixture(scope="module")
@@ -472,6 +495,7 @@ def loop_calls(tracked, drifted, loop_voc):
     state, args = _merge_case("new keyframe and points")
     merge = (_state(state),) + tuple(_t(x) for x in args)
     return {
+        "fuse_into_kfs": (t_fus.fuse_into_kfs, _loop_fusion_args(d), None),
         "search_by_sim3": (t_solver.search_by_sim3, _search_args(tracked, kfs[-1], kfs[0]),
                            _search_args(tracked, kfs[1], kfs[0])),
         "word_match_stage": (t_lc.word_match_stage, (clean.kf_desc, clean.kf_mp,
@@ -483,6 +507,31 @@ def loop_calls(tracked, drifted, loop_voc):
         "merge_gba": (t_lc.merge_gba, merge,
                       merge[:3] + (torch.tensor([True] + [False] * 7),) + merge[4:]),
     }
+
+
+def _loop_fusion_args(d):
+    """`_correct_loop`'s fusion on the drifted map: the loop keyframe b's
+    points into a and its camera-0 covisibility neighbourhood (weight >= 15),
+    padded to FUSE_CAP slots with the dummy K - 1."""
+    state, a, b = _state(d["state"]), d["kf_a"], d["kf_b"]
+    K, M = state.kf_mp.shape[0], state.mp_pos.shape[0]
+    W = t_ms.covisibility(state, cam0_only=True).numpy()
+    slots = [a] + [int(n) for n in np.nonzero(W[a] >= 15.0)[0] if n != a]
+    slots = torch.tensor((slots + [K - 1] * t_lc.FUSE_CAP)[:t_lc.FUSE_CAP])
+    mp_b = state.kf_mp[b].reshape(-1)
+    mask = torch.zeros(M, dtype=torch.bool)
+    mask[mp_b[mp_b >= 0].long()] = True
+    return (state, mask, slots, _port_cfg(d["cfg"]),
+            convert.to_torch(d["calib"], t_cam.CameraParams, "cpu"))
+
+
+def test_loop_fusion_entry_is_its_body(loop_calls):
+    """`fuse_into_kfs` through its entry (the card's route but for the
+    graph) gives its body's bits on the loop's inputs, and it merges."""
+    fn, args, _ = loop_calls["fuse_into_kfs"]
+    out = fn.entry(*args).run(*args)
+    assert _equal(out, fn.__wrapped__(*args))
+    assert int(out[1]) >= 0 and int(out[0].n_mp) <= int(args[0].n_mp)
 
 
 @pytest.mark.parametrize("name", LOOP_GRAPHED)
@@ -530,7 +579,7 @@ def test_loop_stage_through_entries_is_the_direct_run(drifted, loop_voc):
     assert _equal(direct[1], routed[1]) and _equal(direct[2], routed[2])
     assert direct[3] == routed[3] and routed[3][-1]["accepted"]
     assert set(used) == {"word_match_stage", "solve_sim3", "search_by_sim3", "optimize_sim3",
-                         "guided_count_stage", "optimize_essential_graph",
+                         "guided_count_stage", "fuse_into_kfs", "optimize_essential_graph",
                          "run_global_ba_arrays", "merge_gba"}, used
     assert all(n <= 1 and c == 1 for n, c in used.values()), used
 

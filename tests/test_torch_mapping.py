@@ -25,6 +25,14 @@ differences do not compound:
   in the keyframe's own frame), so the 5 mm hold for the port's unpipelined
   tracker; pipelined at depth 3, as `chip_smoke.py` runs it, the callback
   runs three frames later and the centres are held to 2 cm and ATE < 0.05 m.
+
+The stepwise path's functions are graph entries, as the reference jits them
+(`cull_map_points`, `triangulate_new_points`, `fuse_neighbors`,
+`build_local_problem`, `solve_ba_jit`, `apply_ba_result`, `cull_keyframes`,
+`update_point_geometry`): through its entry each leaves its inputs
+bit-unchanged, reads nothing back and gives its body's bits; and
+`run_mapping_stage` with each stage switched off, every graphed call sent
+through its entry, is the direct run to the bit.
 """
 
 import jax.numpy as jnp
@@ -54,6 +62,7 @@ from multi_orb_slam_tpu_torch.mapping import triangulation as t_tri
 from multi_orb_slam_tpu_torch.ops import orb as t_orb
 from multi_orb_slam_tpu_torch.optim import local_ba as t_ba
 from test_torch_fused import _NoHostRead, _raiser
+from test_torch_graphs import _equal, _routed, assert_pure, assert_reads_nothing_back
 
 torch.set_num_threads(2)
 C, H, W, NF, N_FRAMES = 2, 240, 320, 512, 14
@@ -438,3 +447,60 @@ def test_tracker_with_mapping_end_to_end(ref_run, pipelined, limit_m):
     assert float(t_align.ate_rmse(torch.from_numpy(centers), torch.from_numpy(gt))) < 0.05
     assert torch.isfinite(tracker.map.mp_pos).all()
     assert sum(t_lm.BA_WINDOWS.read().values()) >= 1
+
+
+STEPWISE = ("cull_map_points", "triangulate_new_points", "fuse_neighbors", "build_local_problem",
+            "solve_ba_jit", "apply_ba_result", "cull_keyframes", "update_point_geometry")
+
+
+@pytest.fixture(scope="module")
+def stepwise_calls(ref_run, stages):
+    """{name: (graphed function, arguments)}: each stepwise function on the
+    reference's input state of its stage (slots and the frame id as ints,
+    traced on the card)."""
+    tc, tcal, kf = ref_run["tcfg"], ref_run["tcal"], stages["kf"]
+    prob = convert.to_torch(stages["prob"], t_ba.BAProblem, "cpu")
+    sol = tuple(torch.from_numpy(np.asarray(x).copy()) for x in stages["sol"])
+    return {
+        "cull_map_points": (t_lm.cull_map_points, (_tstate(stages["s0"]), stages["fid"], tc)),
+        "triangulate_new_points": (t_tri.triangulate_new_points,
+                                   (_tstate(stages["s1"]), kf, tcal, tc)),
+        "fuse_neighbors": (t_fus.fuse_neighbors, (_tstate(stages["s2"]), kf, tcal, tc)),
+        "build_local_problem": (t_lm.build_local_problem, (_tstate(stages["s3"]), kf, tc, 12, 12)),
+        "solve_ba_jit": (t_lm.solve_ba_jit, (prob, tcal.T_rc, tcal.K, tcal.bf,
+                                             ((5, True), (8, False)))),
+        "apply_ba_result": (t_lm.apply_ba_result, (_tstate(stages["s3"]), prob) + sol + (tc,)),
+        "cull_keyframes": (t_lm.cull_keyframes, (_tstate(stages["s4"]), kf, tc)),
+        "update_point_geometry": (t_tr.update_point_geometry, (_tstate(stages["s5"]), tc)),
+    }
+
+
+@pytest.mark.parametrize("name", STEPWISE)
+def test_stepwise_entry_is_pure_reads_nothing_back_and_is_its_body(stepwise_calls, monkeypatch,
+                                                                   name):
+    fn, args = stepwise_calls[name]
+    assert_pure(fn, args)
+    assert _equal(fn.entry(*args).run(*args), fn.__wrapped__(*args))
+    assert_reads_nothing_back(monkeypatch, fn, args)
+
+
+@pytest.mark.parametrize("off", ["do_triangulate", "do_fuse", "do_ba", "do_cull"])
+def test_stepwise_stage_through_entries_is_the_direct_run(ref_run, off):
+    """`run_mapping_stage` with a stage off, directly and with every graphed
+    call sent through its entry (the card's route but for the graph): the
+    same bits, one entry a function, every stage that ran through its own."""
+    s = ref_run["snap"]
+
+    def run():
+        return t_lm.run_mapping_stage(_tstate(s["state"]), s["kf"], s["fid"], ref_run["tcal"],
+                                      ref_run["tcfg"], covis_hint=s["hint"], **{off: False})
+
+    direct = run()
+    routed, used = _routed(run)
+    assert _equal(direct, routed)
+    ran = {"do_cull": {"cull_map_points", "cull_keyframes"},
+           "do_triangulate": {"triangulate_new_points"}, "do_fuse": {"fuse_neighbors"},
+           "do_ba": {"build_local_problem", "solve_ba_jit", "apply_ba_result"}}
+    expect = {"update_point_geometry"}.union(*(v for k, v in ran.items() if k != off))
+    assert set(used) == expect, used
+    assert all(c == 1 for _, c in used.values()), used

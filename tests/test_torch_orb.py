@@ -8,6 +8,23 @@
 - from the raw image, the pyramid agrees to atol 1e-3 (the reference's
   resize contracts its weights in another order; ~1.3e-4 measured on
   0-255 images) and >= 95% of keypoints are shared (99.4% measured).
+
+The reference's per-level extractor (`extract_orb_reference`, jitted in
+the reference, a graph entry in the port):
+
+- `fast_score` (the ring wrapping at the border) equal on the whole image,
+  border included; `gaussian_blur7` (replicated border) and
+  `gaussian_blur7_batched` (zero border) to 1e-4 of 0-255 grey, `level_sigma2`
+  equal;
+- from the reference's own pyramid: keypoints, levels, responses and
+  validity equal, angles to 1e-4 rad, level 0's descriptors equal and >= 99%
+  of all descriptor bits equal (0.75% differ, measured).  A coarser level's
+  resampled grey levels leave flat regions of almost equal samples, whose
+  comparisons follow the last bit of the blur: the reference's jitted and
+  unjitted runs of its own extractor differ in 2.9% of those bits;
+- from the raw image, >= 99% of keypoints shared (99.4% measured), as the
+  batched extractor is held;
+- through its graph entry: pure, and no host read.
 """
 
 import jax.numpy as jnp
@@ -18,6 +35,8 @@ import torch
 from multi_orb_slam_tpu.io import synthetic
 from multi_orb_slam_tpu.ops import orb as j_orb
 from multi_orb_slam_tpu_torch.ops import orb as t_orb
+
+from test_torch_graphs import assert_pure, assert_reads_nothing_back
 
 torch.set_num_threads(2)
 H, W, NF = 240, 320, 512
@@ -33,6 +52,18 @@ def scene():
     pyr_j = [np.asarray(p) for p in j_orb.build_pyramid(jnp.asarray(img), cfg_j)]
     feats_j = j_orb.extract_orb(jnp.asarray(img), cfg_j)
     return img, pyr_j, {k: np.asarray(v) for k, v in feats_j._asdict().items()}
+
+
+@pytest.fixture(scope="module")
+def reference(scene):
+    """The reference's per-level extraction of the scene's image."""
+    img = scene[0]
+    f = j_orb.extract_orb_reference(jnp.asarray(img), j_orb.ORBConfig(n_features=NF))
+    return {k: np.asarray(v) for k, v in f._asdict().items()}
+
+
+def _keyset(xy, lvl, valid):
+    return set(map(tuple, np.concatenate([xy, lvl[:, None]], 1)[valid].tolist()))
 
 
 def test_brief_tables_equal():
@@ -70,11 +101,8 @@ def test_extract_from_raw_image(scene):
     ft = t_orb.extract_orb(torch.from_numpy(img), cfg)
     assert ft.xy.shape == (NF, 2) and ft.desc.dtype == torch.int32
 
-    def keyset(xy, lvl, valid):
-        return set(map(tuple, np.concatenate([xy, lvl[:, None]], 1)[valid].tolist()))
-
-    kj = keyset(fj["xy"], fj["level"], fj["valid"])
-    kt = keyset(ft.xy.numpy(), ft.level.numpy(), ft.valid.numpy())
+    kj = _keyset(fj["xy"], fj["level"], fj["valid"])
+    kt = _keyset(ft.xy.numpy(), ft.level.numpy(), ft.valid.numpy())
     shared = len(kj & kt) / max(len(kj), 1)
     assert shared >= 0.95, f"only {shared:.3f} of keypoints shared"
 
@@ -89,3 +117,53 @@ def test_rig_batch_equals_per_camera(scene):
         one = t_orb.extract_orb(rig[c], cfg)
         for a, b in zip(both, one):
             torch.testing.assert_close(a[c], b, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("name", ["fast_score", "gaussian_blur7", "gaussian_blur7_batched"])
+def test_reference_level_ops(scene, name):
+    """On the whole image, border included (the blurs on a batch of two)."""
+    img = scene[0]
+    x = np.stack([img, img[::-1].copy()]) if name == "gaussian_blur7_batched" else img
+    ref = np.asarray(getattr(j_orb, name)(jnp.asarray(x)))
+    got = getattr(t_orb, name)(torch.from_numpy(x)).numpy()
+    if name == "fast_score":
+        np.testing.assert_array_equal(got, ref)
+    else:
+        np.testing.assert_allclose(got, ref, atol=1e-4)
+
+
+def test_level_sigma2():
+    cfg = t_orb.ORBConfig(n_features=NF)
+    np.testing.assert_array_equal(t_orb.level_sigma2(cfg).numpy(),
+                                  np.asarray(j_orb.level_sigma2(j_orb.ORBConfig(n_features=NF))))
+
+
+def test_extract_orb_reference_on_reference_pyramid(scene, reference):
+    _, pyr_j, _ = scene
+    fj = reference
+    ft = t_orb.extract_reference_from_pyramid([torch.from_numpy(p.copy()) for p in pyr_j],
+                                              t_orb.ORBConfig(n_features=NF))
+    for name in ("xy", "xy_und", "level", "valid", "response"):
+        np.testing.assert_array_equal(getattr(ft, name).numpy(), fj[name], err_msg=name)
+    np.testing.assert_allclose(ft.angle.numpy(), fj["angle"], atol=1e-4)
+    desc = ft.desc.numpy().view(np.uint32)
+    lvl0 = fj["level"] == 0
+    np.testing.assert_array_equal(desc[lvl0], fj["desc"][lvl0])
+    diff = np.unpackbits((desc ^ fj["desc"]).view(np.uint8))
+    assert diff.mean() <= 0.01, f"{diff.mean():.4f} of descriptor bits differ"
+
+
+def test_extract_orb_reference_from_raw_image(scene, reference):
+    img = scene[0]
+    ft = t_orb.extract_orb_reference(torch.from_numpy(img), t_orb.ORBConfig(n_features=NF))
+    assert ft.xy.shape == (NF, 2) and ft.desc.dtype == torch.int32
+    kj = _keyset(reference["xy"], reference["level"], reference["valid"])
+    kt = _keyset(ft.xy.numpy(), ft.level.numpy(), ft.valid.numpy())
+    shared = len(kj & kt) / max(len(kj), 1)
+    assert shared >= 0.99, f"only {shared:.3f} of keypoints shared"
+
+
+def test_extract_orb_reference_entry_is_pure_and_reads_nothing_back(scene, monkeypatch):
+    args = (torch.from_numpy(scene[0]), t_orb.ORBConfig(n_features=NF))
+    assert_pure(t_orb.extract_orb_reference, args)
+    assert_reads_nothing_back(monkeypatch, t_orb.extract_orb_reference, args)

@@ -142,8 +142,8 @@ def _two_way_errors(g, pts_a, pts_b, cams, T_rc, K):
     return e_ab, e_ba
 
 
-@pytest.mark.parametrize("case", ["clean", "noisy_outliers", "cam_ids_zeroed"])
-def test_ransac_solver_on_the_reference_triplets(case):
+def _ransac_case(case):
+    """(pts_a, pts_b, cam ids, valid, T_rc, K) of `test_sim3_multicam`'s pair."""
     _, (pts_a, pts_b, cams, T_rc) = test_sim3_multicam.make_pair(
         noise=0.01 if case == "noisy_outliers" else 0.0)
     n = pts_a.shape[0]
@@ -154,15 +154,14 @@ def test_ransac_solver_on_the_reference_triplets(case):
         pts_b[bad] += rng.uniform(-0.5, 0.5, (40, 3)).astype(np.float32)
         valid[-20:] = False
     cam_in = np.zeros(n, np.int32) if case == "cam_ids_zeroed" else cams
-    K = np.asarray(test_sim3_multicam.K2)
-    key = jax.random.PRNGKey(7)
-    g_j, inl_j, n_j = j_solver.solve_sim3_ransac(
-        key, jnp.asarray(pts_a), jnp.asarray(pts_b), jnp.asarray(cam_in), jnp.asarray(cam_in),
-        jnp.asarray(valid), T_rc, jnp.asarray(K))
-    tri = _reference_triplets(key, jnp.asarray(valid))
-    g_t, inl_t, n_t = t_solver.solve_sim3(
-        torch.from_numpy(tri.copy()).long(), _t(pts_a), _t(pts_b), _t(cam_in), _t(cam_in),
-        _t(valid), _t(np.asarray(T_rc)), _t(K))
+    return pts_a, pts_b, cam_in, valid, T_rc, np.asarray(test_sim3_multicam.K2)
+
+
+def _hold_ransac(case, g_t, inl_t, n_t, g_j, inl_j, n_j):
+    """The port's RANSAC result against the reference's on the same draws:
+    g to 1e-4, inlier flags equal but where a point's error sits within 1%
+    of the gate, counts apart by at most those."""
+    pts_a, pts_b, cam_in, valid, T_rc, K = _ransac_case(case)
     np.testing.assert_allclose(g_t.numpy(), np.asarray(g_j), atol=1e-4)
     e_ab, e_ba = _two_way_errors(np.asarray(g_j), pts_a, pts_b, cam_in, np.asarray(T_rc), K)
     th2 = 9.210 * 10.0
@@ -171,7 +170,63 @@ def test_ransac_solver_on_the_reference_triplets(case):
     assert near[differ].all(), differ
     assert abs(int(n_t) - int(n_j)) <= len(differ)
     if case != "cam_ids_zeroed":
-        assert int(n_t) >= 0.6 * n
+        assert int(n_t) >= 0.6 * pts_a.shape[0]
+
+
+def _reference_ransac(case, key):
+    pts_a, pts_b, cam_in, valid, T_rc, K = _ransac_case(case)
+    return j_solver.solve_sim3_ransac(
+        key, jnp.asarray(pts_a), jnp.asarray(pts_b), jnp.asarray(cam_in), jnp.asarray(cam_in),
+        jnp.asarray(valid), T_rc, jnp.asarray(K))
+
+
+@pytest.mark.parametrize("case", ["clean", "noisy_outliers", "cam_ids_zeroed"])
+def test_ransac_solver_on_the_reference_triplets(case):
+    pts_a, pts_b, cam_in, valid, T_rc, K = _ransac_case(case)
+    key = jax.random.PRNGKey(7)
+    tri = _reference_triplets(key, jnp.asarray(valid))
+    out_t = t_solver.solve_sim3(
+        torch.from_numpy(tri.copy()).long(), _t(pts_a), _t(pts_b), _t(cam_in), _t(cam_in),
+        _t(valid), _t(np.asarray(T_rc)), _t(K))
+    _hold_ransac(case, *out_t, *_reference_ransac(case, key))
+
+
+@pytest.mark.parametrize("case", ["clean", "noisy_outliers"])
+def test_solve_sim3_ransac_on_the_reference_draws(case, monkeypatch):
+    """`solve_sim3_ransac` (the draws from a `torch.Generator`, then the
+    graphed solver) with its sampler handed the reference's draws for the
+    key: the reference's result, as `solve_sim3` is held; and with the
+    port's own draws, a generator that draws alike gives the same bits."""
+    pts_a, pts_b, cam_in, valid, T_rc, K = _ransac_case(case)
+    key = jax.random.PRNGKey(7)
+    tri = torch.from_numpy(_reference_triplets(key, jnp.asarray(valid)).copy()).long()
+    args = (_t(pts_a), _t(pts_b), _t(cam_in), _t(cam_in), _t(valid), _t(np.asarray(T_rc)), _t(K))
+    with monkeypatch.context() as mp:
+        mp.setattr(t_solver, "sample_triplets", lambda v, n_hyp, gen: tri[:n_hyp])
+        out_t = t_solver.solve_sim3_ransac(torch.Generator(), *args)
+    _hold_ransac(case, *out_t, *_reference_ransac(case, key))
+    own = [t_solver.solve_sim3_ransac(torch.Generator().manual_seed(3), *args) for _ in range(2)]
+    assert all(torch.equal(a, b) for a, b in zip(*own))
+    assert int(own[0][2]) >= 0.6 * pts_a.shape[0]
+
+
+def test_edge_residual():
+    """The pose graph's residual on random Sim(3) poses, tangents and
+    measurements, rows indexed by arrays and by ints: the reference's to
+    1e-5."""
+    rng = np.random.RandomState(0)
+    K, E = 12, 30
+    g = np.asarray(j_sim3.exp(jnp.asarray(rng.randn(K, 7).astype(np.float32) * 0.3)))
+    xi = rng.randn(K, 7).astype(np.float32) * 0.05
+    meas = np.asarray(j_sim3.exp(jnp.asarray(rng.randn(E, 7).astype(np.float32) * 0.2)))
+    i, j = rng.randint(0, K, E), rng.randint(0, K, E)
+    ref = np.asarray(j_pg.edge_residual(jnp.asarray(g), jnp.asarray(xi), jnp.asarray(i),
+                                        jnp.asarray(j), jnp.asarray(meas)))
+    got = t_pg.edge_residual(_t(g), _t(xi), torch.from_numpy(i), torch.from_numpy(j), _t(meas))
+    np.testing.assert_allclose(got.numpy(), ref, atol=1e-5)
+    one = t_pg.edge_residual(_t(g), _t(xi), 3, 7, _t(meas[0]))
+    np.testing.assert_allclose(one.numpy(), np.asarray(j_pg.edge_residual(
+        jnp.asarray(g), jnp.asarray(xi), 3, 7, jnp.asarray(meas[0]))), atol=1e-5)
 
 
 def _sim3_problems():
