@@ -133,9 +133,17 @@ Phases (each raises on failure; the script then exits non-zero):
    within 1e-4, the global BA's poses within 1e-3 and its points within a
    tenth of a sigma in their information metric (1 mm where H_pp's
    smallest eigenvalue is >= 10 m^-2), as the distributed BA's card test
-   holds them (float `index_add_` sums in no fixed order: two eager
-   calls' spread printed beside), each entry's capture and replay, and a
-   `{"loop_graphs": ...}` line.
+   holds them (two eager calls' spread printed beside), each entry's
+   capture and replay, and a `{"loop_graphs": ...}` line.
+6a. `determinism`: the loop keyframe's global BA and essential graph each
+   replayed 3 times on its inputs, and `_correct_loop` twice from copies of
+   one map on fresh `LoopCloser`s: every output the same bits, or the phase
+   fails (their sums add in one fixed order, `optim/segments.py`).  For the
+   record, both solvers captured once more with their sums as the float
+   `index_add_` the port used before (atomics): their spread over 3
+   replays, their distance from the fixed-order result, and each replay's
+   device ms against the fixed-order replay's, in turns; a
+   `{"determinism": ...}` line.
 6b. `system-longrun`: `tests/test_longrun.py`'s scene at the bench's width:
    520 frames of an outward circuit of 2.2 laps at 640x480 on the dual rig
    (`bench_rig`), frames 200-279 at half contrast, rendered by parallel
@@ -154,7 +162,13 @@ Phases (each raises on failure; the script then exits non-zero):
    a loop closes and a GBA merges, every kernel launched as the replays
    say, no function holds two graph entries at the same shapes and static
    arguments, and the peak memory at frame 519 is within 64 MiB of frame
-   300's unless a capture came between.
+   300's unless a capture came between.  Then the 520 frames again through
+   a fresh `System` in the same process (its graphs already captured): it
+   fails unless the second pass gives the first one's row (the frames not
+   OK, the keyframes' frames, each loop's frame and keyframe pair, GBAs
+   dispatched and merged, n_kf, n_mp) and its final keyframe poses and map
+   points to the bit; both passes' ATE and track_rgbd median / p99 ms are
+   printed, and the first frame whose pose parts if one does.
    `overflow`: `tests/test_capacity.py`'s run (25 frames, one 320x240
    camera, `max_kf=24, max_mp=768`) through `Tracker` with the mapping stage
    on graphs and under `graphs.eager()`: the same states, `n_mp` and
@@ -1746,7 +1760,7 @@ def gba_points_apart(arrays, Tcw_ref, pos_ref, pos):
     (the largest sqrt(dp^T H dp) over the valid points, the largest |dp| in
     m over those whose smallest H eigenvalue is >= GBA_INFO_FLOOR).  Points
     that one observation or a short baseline holds slide along their ray
-    with the order of the atomics' sums; the metric weighs that out."""
+    with any rounding; the metric weighs that out."""
     from multi_orb_slam_tpu_torch.optim import global_ba
 
     H = global_ba.map_point_information(*arrays, Tcw_ref, pos_ref)
@@ -1761,8 +1775,8 @@ def loop_graphs_vs_eager(stash, calib, cfg, voc):
     """The loop keyframe's stages on the inputs the run handed them (copies
     kept in `stash`), each on a fresh `LoopCloser`, once on graphs (every
     entry captured by the run: replays) and once under `graphs.eager()`;
-    the pose graph and the global BA twice each, for the spread of their
-    atomics.  Host ms (`_correct_loop` and the dispatch: until they return,
+    the pose graph and the global BA twice each (their spread: 0 since
+    they sum in one fixed order).  Host ms (`_correct_loop` and the dispatch: until they return,
     and until the card is done), and the results held: `_compute_sim3` and
     the merge to the bit, the pose graph and `_correct_loop`'s poses within
     LOOP_POSE_TOL, the global BA's poses within GBA_POSE_TOL and its points
@@ -1817,7 +1831,7 @@ def loop_graphs_vs_eager(stash, calib, cfg, voc):
                                    and g["compute_sim3"][2] == e["compute_sim3"][2]
                                    and torch.equal(g["compute_sim3"][1], e["compute_sim3"][1])),
         "merge_same_bits": all(torch.equal(x, y) for x, y in zip(g["merge"], e["merge"])),
-        # the loop fusion's fields (the pose graph after it sums with atomics)
+        # the loop fusion's fields (the pose graph after it is held to a tolerance)
         "correct_loop_fusion_same_bits": all(
             torch.equal(getattr(g["correct_loop"], f), getattr(e["correct_loop"], f))
             for f in ("kf_mp", "mp_valid", "mp_replaced", "mp_found", "mp_visible", "n_mp")),
@@ -2078,7 +2092,150 @@ def phase_system_loop(dev):
         failures.append("NaN or inf in a pose or a point")
     if failures:
         raise AssertionError("system-loop: " + "; ".join(failures))
-    return launches
+    return launches, {"stash": stash, "calib": calib, "cfg": cfg, "voc": voc}
+
+
+# ---------------------------------------------------------------------------
+# One result per input: the loop stage's solvers called again on one input
+# ---------------------------------------------------------------------------
+
+DETERMINISM_REPLAYS = 3
+
+
+@contextlib.contextmanager
+def index_add_sums():
+    """Every `Segments` sum as the float `index_add_` it took the place of
+    (atomics on the card, in no fixed order): the loop stage's sums as the
+    port summed them before, for the record."""
+    from multi_orb_slam_tpu_torch.optim import segments
+
+    def index_add_sum(self, v):
+        index = (torch.arange(v.shape[0], device=v.device) // self.block if self.block
+                 else self.index)
+        out = torch.zeros((self.n + 1,) + v.shape[1:], dtype=v.dtype, device=v.device)
+        return out.index_add_(0, index, v)[:self.n]
+
+    kept = segments.Segments.sum
+    segments.Segments.sum = index_add_sum
+    try:
+        yield
+    finally:
+        segments.Segments.sum = kept
+
+
+def spread(runs):
+    """The largest |difference| of any output of `runs[1:]` from `runs[0]`'s."""
+    from multi_orb_slam_tpu_torch.utils import graphs
+
+    return max(float((x.double() - y.double()).abs().max()) if x.numel() else 0.0
+               for r in runs[1:] for x, y in zip(graphs.tensors(runs[0]), graphs.tensors(r)))
+
+
+def differing_fields(a, b):
+    """The fields of two MapStates whose bits differ."""
+    return [f for f in a._fields if isinstance(getattr(a, f), torch.Tensor)
+            and not torch.equal(getattr(a, f), getattr(b, f))]
+
+
+def phase_determinism(ctx):
+    """`determinism`: the loop keyframe's solvers again on the inputs
+    `system-loop` handed them (copies): the global BA (`run_global_ba_arrays`)
+    and the essential graph each replayed DETERMINISM_REPLAYS times, and
+    `_correct_loop` run twice on fresh `LoopCloser`s from copies of one map
+    (its pose graph, fusion and point correction, and the global BA it
+    dispatches).  Fails unless every output of each is the same bits on every
+    call.  For the record: the same two solvers captured with their sums as
+    the parent's float `index_add_` (`index_add_sums`), replayed as often,
+    their spread and their distance from the fixed-order result; and each
+    replay's device ms against the parent form's, in turns (parent, new,
+    new, parent; `torch.profiler`)."""
+    from multi_orb_slam_tpu_torch.loop import loop_closing
+    from multi_orb_slam_tpu_torch.optim import global_ba, pose_graph
+    from multi_orb_slam_tpu_torch.utils import graphs
+
+    stash, calib, cfg, voc = ctx["stash"], ctx["calib"], ctx["cfg"], ctx["voc"]
+    dev = calib.K.device
+    sa, ca, kf_free = global_ba.global_ba_arrays(*stash["dispatch"])
+    gba_args = (sa, ca, kf_free, stash["dispatch"][2], LOOP_GBA_OUTER)
+    pg_args = stash["pose_graph"]
+    print(f"determinism: on the loop keyframe's inputs (frame {stash['frame']}): the global BA "
+          f"({int(sa[1].sum())} keyframes, {int(sa[6].sum())} points, {LOOP_GBA_OUTER} outer "
+          f"iterations) and the essential graph ({int(pg_args[5].sum())} edges of "
+          f"{pg_args[5].shape[0]}) {DETERMINISM_REPLAYS} replays each, _correct_loop twice")
+
+    def correct():
+        lc = loop_closing.LoopCloser(calib, cfg)
+        lc.voc, lc.loop_pairs = voc, list(stash["loop_pairs"])
+        state = lc._correct_loop(*graphs.clone(stash["correct"]))
+        return state, lc._gba_pending[:2]
+
+    gba = [global_ba.run_global_ba_arrays(*gba_args) for _ in range(DETERMINISM_REPLAYS)]
+    pg = [pose_graph.optimize_essential_graph(*pg_args) for _ in range(DETERMINISM_REPLAYS)]
+    cl = [correct() for _ in range(2)]
+    torch.cuda.synchronize()
+    fields = differing_fields(cl[0][0], cl[1][0])
+    held = {"global_ba_spread": spread(gba), "essential_graph_spread": spread(pg),
+            "correct_loop_fields_apart": fields,
+            "correct_loop_gba_spread": spread([c[1] for c in cl])}
+
+    # the parent's form on the same inputs: captured, replayed as often
+    bodies = {"global_ba": lambda: global_ba.run_global_ba_arrays.__wrapped__(*gba_args),
+              "essential_graph": lambda: pose_graph.optimize_essential_graph.__wrapped__(
+                  *pg_args)}
+    with index_add_sums():
+        parent = {k: graphs.capture(dev, body, body) for k, body in bodies.items()}
+    parent_runs = {}
+    for k, cap in parent.items():
+        runs = []
+        for _ in range(DETERMINISM_REPLAYS):
+            cap.graph.replay()
+            runs.append(graphs.clone(cap.out))
+        torch.cuda.synchronize()
+        parent_runs[k] = runs
+    gba_pts = gba_points_apart((sa, ca), *gba[0], parent_runs["global_ba"][0][1])
+    gba_pts_self = max(gba_points_apart((sa, ca), *parent_runs["global_ba"][0], r[1])[0]
+                       for r in parent_runs["global_ba"][1:])
+    record = {
+        "parent_global_ba_spread": spread(parent_runs["global_ba"]),
+        "parent_global_ba_pose_spread": spread([r[0] for r in parent_runs["global_ba"]]),
+        "parent_global_ba_points_sigma_spread": gba_pts_self,
+        "parent_essential_graph_spread": spread(parent_runs["essential_graph"]),
+        "parent_global_ba_from_fixed_poses": spread([gba[0][0], parent_runs["global_ba"][0][0]]),
+        "parent_global_ba_from_fixed_points_sigma": gba_pts[0],
+        "parent_essential_graph_from_fixed": spread([pg[0], parent_runs["essential_graph"][0]]),
+    }
+
+    # device ms of a replay, the parent's form and this one's in turns
+    entries = {"global_ba": global_ba.run_global_ba_arrays.entry(*gba_args),
+               "essential_graph": pose_graph.optimize_essential_graph.entry(*pg_args)}
+    device_ms = {}
+    for k in entries:
+        turns = [("parent", parent[k].graph), ("fixed", entries[k].graph),
+                 ("fixed", entries[k].graph), ("parent", parent[k].graph)]
+        ms = collections.defaultdict(list)
+        for label, graph in turns:
+            ms[label].append(profiled_device(graph.replay)[0])
+        device_ms[k] = dict(ms)
+    print(f"  global BA: {DETERMINISM_REPLAYS} replays the same bits "
+          f"{held['global_ba_spread'] == 0.0} (spread {held['global_ba_spread']:.3e}); the "
+          f"parent's index_add_ form {record['parent_global_ba_spread']:.3e} apart over "
+          f"{DETERMINISM_REPLAYS} replays (poses {record['parent_global_ba_pose_spread']:.3e}, "
+          f"points {record['parent_global_ba_points_sigma_spread']:.4f} sigma), "
+          f"{record['parent_global_ba_from_fixed_poses']:.3e} (poses) and "
+          f"{record['parent_global_ba_from_fixed_points_sigma']:.4f} sigma (points) from the "
+          f"fixed-order result")
+    print(f"  essential graph: {DETERMINISM_REPLAYS} replays the same bits "
+          f"{held['essential_graph_spread'] == 0.0}; the parent's form "
+          f"{record['parent_essential_graph_spread']:.3e} apart, "
+          f"{record['parent_essential_graph_from_fixed']:.3e} from the fixed-order result")
+    print(f"  _correct_loop twice from one map: fields apart {fields or 'none'}; the global BA "
+          f"it dispatched {held['correct_loop_gba_spread']:.3e} apart")
+    for k, ms in device_ms.items():
+        print(f"  {k} replay device ms, parent's form {ms['parent']} / fixed order {ms['fixed']}")
+    print(json.dumps({"determinism": {**held, **record, "device_ms": device_ms}}))
+    if held["global_ba_spread"] or held["essential_graph_spread"] or fields \
+            or held["correct_loop_gba_spread"]:
+        raise AssertionError(f"determinism: repeated calls on one input differ: {held}")
 
 
 # ---------------------------------------------------------------------------
@@ -2137,34 +2294,17 @@ def longrun_scene(dev):
     return calib, frames, poses
 
 
-def phase_system_longrun(dev):
-    """`system-longrun`: `tests/test_longrun.py`'s 520-frame circuit at 640x480
-    through `System(DUAL_RGBD)` with loop closing and global BA, on graphs.
-    Fails unless the test's four assertions hold (frames not OK, keyframe
-    cadence, the low-contrast stretch's cadence, capacity), a loop is
-    closed and a GBA merged, every kernel launched (the three that run only
-    in graphs as often as the replays say), no function holds two graph
-    entries at the same shapes and static arguments, and the peak memory
-    at the last frame is within LONG_MEMORY_GROWTH_MB of frame 300's (unless
-    a capture came between).  Returns the launch counts."""
+def longrun_pass(frames, calib, cfg, voc):
+    """One pass of `system-longrun`'s frames through a fresh
+    `System(DUAL_RGBD)` with loop closing and global BA; the launch counts
+    set to 0 just before and read just after.  Returns what the phase
+    prints and holds (see `longrun_row` for the part two passes must
+    share)."""
     from multi_orb_slam_tpu_torch import system as system_mod
-    from multi_orb_slam_tpu_torch.config import SlamConfig
-    from multi_orb_slam_tpu_torch.frontend import tracking
-    from multi_orb_slam_tpu_torch.geometry import align
-    from multi_orb_slam_tpu_torch.io import synthetic
-    from multi_orb_slam_tpu_torch.ops import kernels, orb
+    from multi_orb_slam_tpu_torch.ops import kernels
     from multi_orb_slam_tpu_torch.placerec import database
     from multi_orb_slam_tpu_torch.utils import graphs
 
-    calib, frames, poses_gt = longrun_scene(dev)
-    n = len(frames)
-    cfg = SlamConfig(n_cams=C, width=W, height=H, th_depth=4.0,
-                     orb=orb.ORBConfig(n_features=1024))
-    print(f"  System(DUAL_RGBD) on graphs, loop closing and run_gba on; the default SlamConfig "
-          f"(1024 features, max_kf {cfg.max_kf}, max_mp {cfg.max_mp}, local_cap "
-          f"{cfg.local_cap}, new_mp_per_cam {cfg.new_mp_per_cam}) with th_depth 4.0 as the test "
-          f"sets it")
-    voc = loop_vocabulary(frames, cfg)
     sys_ = system_mod.System(sensor=system_mod.Sensor.DUAL_RGBD, calib=calib, cfg=cfg)
     lc = sys_.loop_closer
     lc.voc, lc.db = voc, database.make_empty_db(cfg.max_kf, voc.n_words)
@@ -2226,14 +2366,73 @@ def phase_system_longrun(dev):
     sys_.shutdown()
     traj = tr.absolute_trajectory()
     torch.cuda.synchronize()
-    launches = dict(kernels.LAUNCHES)
-    replayed = replayed_launches(calls0)
-    st = sys_.map
-    fids = [fid for fid, *_ in traj]
+    return {"system": sys_, "states": states, "ms": np.asarray(ms_), "syncs": syncs,
+            "kf_frames": kf_frames, "kf_slots": kf_slots, "relocs": relocs,
+            "captures": captures, "loops": loops, "memory": memory,
+            "pending_at_end": pending_at_end, "merged_before_shutdown": merged_before_shutdown,
+            "traj": traj, "launches": dict(kernels.LAUNCHES),
+            "replayed": replayed_launches(calls0)}
+
+
+def longrun_row(run):
+    """What two passes on one input must share: the frames not OK, the
+    keyframes' frames, each loop's frame and keyframe pair, the GBAs
+    dispatched and merged, n_kf and n_mp (the final poses and points are
+    compared to the bit apart)."""
+    from multi_orb_slam_tpu_torch.frontend import tracking
+
+    lc, st = run["system"].loop_closer, run["system"].map
+    return {"not_ok": [i for i, x in enumerate(run["states"]) if x != tracking.TrackState.OK],
+            "keyframes": run["kf_frames"],
+            "loops": [(r["frame"], r["kf_a"], r["kf_b"]) for r in run["loops"]],
+            "gba_dispatched": lc.n_loops_closed, "gba_merged": lc.n_gba_merged,
+            "n_kf": int(st.n_kf), "n_mp": int(st.n_mp)}
+
+
+def longrun_ate(run, poses_gt):
+    from multi_orb_slam_tpu_torch.geometry import align
+
+    traj, n = run["traj"], len(poses_gt)
     est = np.stack([np.linalg.inv(np.asarray(T, np.float64))[:3, 3] for _, _, T, _ in traj])
-    gt = np.stack([np.linalg.inv(poses_gt[min(f, n - 1)])[:3, 3] for f in fids])
-    ate = float(align.ate_rmse(torch.from_numpy(est), torch.from_numpy(gt)))
-    ms_ = np.asarray(ms_)
+    gt = np.stack([np.linalg.inv(poses_gt[min(f, n - 1)])[:3, 3] for f, *_ in traj])
+    return float(align.ate_rmse(torch.from_numpy(est), torch.from_numpy(gt))), est
+
+
+def phase_system_longrun(dev):
+    """`system-longrun`: `tests/test_longrun.py`'s 520-frame circuit at 640x480
+    through `System(DUAL_RGBD)` with loop closing and global BA, on graphs.
+    Fails unless the test's four assertions hold (frames not OK, keyframe
+    cadence, the low-contrast stretch's cadence, capacity), a loop is
+    closed and a GBA merged, every kernel launched (the three that run only
+    in graphs as often as the replays say), no function holds two graph
+    entries at the same shapes and static arguments, and the peak memory
+    at the last frame is within LONG_MEMORY_GROWTH_MB of frame 300's (unless
+    a capture came between).  Then a second pass of the same frames in a
+    fresh `System` (its graphs already captured): fails unless it gives the
+    first pass's row (`longrun_row`) and its final keyframe poses and map
+    points to the bit.  Returns the first pass's launch counts."""
+    from multi_orb_slam_tpu_torch.config import SlamConfig
+    from multi_orb_slam_tpu_torch.frontend import tracking
+    from multi_orb_slam_tpu_torch.io import synthetic
+    from multi_orb_slam_tpu_torch.ops import orb
+    from multi_orb_slam_tpu_torch.utils import graphs
+
+    calib, frames, poses_gt = longrun_scene(dev)
+    n = len(frames)
+    cfg = SlamConfig(n_cams=C, width=W, height=H, th_depth=4.0,
+                     orb=orb.ORBConfig(n_features=1024))
+    print(f"  System(DUAL_RGBD) on graphs, loop closing and run_gba on; the default SlamConfig "
+          f"(1024 features, max_kf {cfg.max_kf}, max_mp {cfg.max_mp}, local_cap "
+          f"{cfg.local_cap}, new_mp_per_cam {cfg.new_mp_per_cam}) with th_depth 4.0 as the test "
+          f"sets it")
+    voc = loop_vocabulary(frames, cfg)
+    run = longrun_pass(frames, calib, cfg, voc)
+    sys_, states, ms_, syncs = run["system"], run["states"], run["ms"], run["syncs"]
+    kf_frames, kf_slots, relocs = run["kf_frames"], run["kf_slots"], run["relocs"]
+    captures, loops, memory = run["captures"], run["loops"], run["memory"]
+    launches, replayed, traj = run["launches"], run["replayed"], run["traj"]
+    lc, st = sys_.loop_closer, sys_.map
+    ate, est = longrun_ate(run, poses_gt)
     not_ok = sum(1 for x in states if x != tracking.TrackState.OK)
     n_created = len(kf_frames)
     lo, hi = synthetic.LONGRUN_LOW_CONTRAST
@@ -2272,8 +2471,8 @@ def phase_system_longrun(dev):
     print(f"  loop candidates verified {len(lc.verifications)}, loops closed "
           f"{lc.n_loops_closed}, loop pairs {lc.loop_pairs}")
     print(f"  GBAs dispatched {lc.n_loops_closed}, merged {lc.n_gba_merged} "
-          f"({merged_before_shutdown} before shutdown(); pending at the end {pending_at_end}), "
-          f"superseded {superseded}")
+          f"({run['merged_before_shutdown']} before shutdown(); pending at the end "
+          f"{run['pending_at_end']}), superseded {superseded}")
     print(f"  final n_kf {n_kf} of {cfg.max_kf}, n_mp {n_mp} of {cfg.max_mp}, n_alloc_failed "
           f"{n_alloc_failed}; ATE over all {len(traj)} frames {ate:.4f} m")
     print(f"  track_rgbd ms: median {np.median(ms_):.2f}, p99 {np.percentile(ms_, 99):.2f}, "
@@ -2299,6 +2498,26 @@ def phase_system_longrun(dev):
     if captured_between:
         print(f"  captures between frames {f0} and {f1} (the memory bound is not held): "
               f"{[(c['frame'], c['entry']) for c in captured_between]}")
+
+    # the second pass: the same frames, a fresh System, the graphs captured
+    again = longrun_pass(frames, calib, cfg, voc)
+    ate2, _ = longrun_ate(again, poses_gt)
+    row, row2 = longrun_row(run), longrun_row(again)
+    st2, ms2 = again["system"].map, again["ms"]
+    same_map = torch.equal(st.kf_Tcw, st2.kf_Tcw) and torch.equal(st.mp_pos, st2.mp_pos)
+    poses = [np.asarray(T) for _, _, T, _ in traj]
+    poses2 = [np.asarray(T) for _, _, T, _ in again["traj"]]
+    parted = next((i for i, (x, y) in enumerate(zip(poses, poses2)) if not np.array_equal(x, y)),
+                  None if len(poses) == len(poses2) else min(len(poses), len(poses2)))
+    print(f"  second pass, a fresh System on the same frames: the same row {row == row2}, the "
+          f"final keyframe poses and map points the same bits {same_map}, every frame's pose "
+          f"the same bits {parted is None}"
+          + ("" if parted is None else f" (first apart at frame {parted})"))
+    for label, r, a_, m_ in (("first", row, ate, ms_), ("second", row2, ate2, ms2)):
+        print(f"    {label} pass: not OK {len(r['not_ok'])}, keyframes {len(r['keyframes'])}, "
+              f"loops {r['loops']}, GBAs dispatched {r['gba_dispatched']} merged "
+              f"{r['gba_merged']}, n_kf {r['n_kf']}, n_mp {r['n_mp']}, ATE {a_:.4f} m, "
+              f"track_rgbd median {np.median(m_):.2f} ms, p99 {np.percentile(m_, 99):.2f} ms")
     print(json.dumps({"system_longrun": {
         "frames": n, "not_ok": not_ok, "keyframes": kf_frames, "rate_low": rate_low,
         "rate_all": rate_all, "loops": loops, "gba": {"dispatched": lc.n_loops_closed,
@@ -2308,7 +2527,12 @@ def phase_system_longrun(dev):
         "ms": {"median": float(np.median(ms_)), "p99": float(np.percentile(ms_, 99)),
                "max": float(ms_.max())},
         "host_syncs_median": float(np.median(syncs)), "captures": captures,
-        "memory": memory, "slot_reuses": reused, "launches": launches}}))
+        "memory": memory, "slot_reuses": reused, "launches": launches,
+        "second_pass": {"same_row": row == row2, "same_map_bits": same_map,
+                        "first_frame_apart": parted, "row": row2, "ate_m": ate2,
+                        "ms": {"median": float(np.median(ms2)),
+                               "p99": float(np.percentile(ms2, 99))},
+                        "captures": len(again["captures"])}}}))
 
     failures = []
     if not_ok > LONG_MAX_NOT_OK:
@@ -2335,6 +2559,9 @@ def phase_system_longrun(dev):
                         f"with no capture between")
     if not (np.isfinite(est).all() and bool(torch.isfinite(st.kf_Tcw).all())):
         failures.append("NaN or inf in a pose")
+    if row != row2 or not same_map:
+        failures.append(f"the second pass is not the first: {row2} against {row}, the final map "
+                        f"the same bits {same_map}, first frame apart {parted}")
     if failures:
         raise AssertionError("system-longrun: " + "; ".join(failures))
     return launches
@@ -3502,8 +3729,10 @@ def main():
     (tracking, mapped, system, firsts, fused, scan, graph, system_graphs,
      stepwise) = phase_main_paths(dev)
     t = elapsed("orbit paths and system-reloc", t)
-    loop = phase_system_loop(dev)
+    loop, loop_ctx = phase_system_loop(dev)
     t = elapsed("system-loop", t)
+    phase_determinism(loop_ctx)
+    t = elapsed("determinism", t)
     longrun = phase_system_longrun(dev)
     t = elapsed("system-longrun", t)
     overflow = phase_overflow(dev)

@@ -12,11 +12,21 @@ import math
 
 import torch
 
-from .kernels import BIG, popcount32  # noqa: F401  (re-exported)
-
 TH_HIGH = 100
 TH_LOW = 50
 HISTO_LENGTH = 30
+
+BIG = 1 << 20  # sentinel distance for masked entries (window_match's no-candidate distance)
+
+
+def popcount32(x: torch.Tensor) -> torch.Tensor:
+    """Per-word popcount of int32 descriptor words (as unsigned 32-bit), by
+    the reference's SWAR steps in int64."""
+    v = x.to(torch.int64) & 0xFFFFFFFF
+    v = v - ((v >> 1) & 0x55555555)
+    v = (v & 0x33333333) + ((v >> 2) & 0x33333333)
+    v = (v + (v >> 4)) & 0x0F0F0F0F
+    return (((v * 0x01010101) & 0xFFFFFFFF) >> 24).to(torch.int32)
 
 
 def hamming_distance(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -36,7 +36,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
-BIG = 1 << 20  # no-candidate distance of window_match
+from .hamming import BIG, popcount32  # noqa: F401  (BIG: window_match's no-candidate distance)
 
 LAUNCHES = {"fast_score": 0, "gather_patches": 0, "window_match": 0,
             "point_sums": 0}
@@ -270,15 +270,6 @@ def gather_patches(canvas: torch.Tensor, idx: torch.Tensor,
 # ---------------------------------------------------------------------------
 # B3: fused gated best/second Hamming matcher
 # ---------------------------------------------------------------------------
-
-
-def popcount32(x: torch.Tensor) -> torch.Tensor:
-    """Per-word popcount of int32 descriptor words (as unsigned 32-bit)."""
-    v = x.to(torch.int64) & 0xFFFFFFFF
-    v = v - ((v >> 1) & 0x55555555)
-    v = (v & 0x33333333) + ((v >> 2) & 0x33333333)
-    v = (v + (v >> 4)) & 0x0F0F0F0F
-    return (((v * 0x01010101) & 0xFFFFFFFF) >> 24).to(torch.int32)
 
 
 def window_match_candidates(q_uv, q_rad, q_lmin, q_lmax, q_ur,

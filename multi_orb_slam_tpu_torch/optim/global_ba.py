@@ -7,17 +7,22 @@ point marginalized.  The reduced camera system
     S dx = (H_cc - W H_pp^-1 W^T) dx
 
 is applied matrix-free: each matvec gathers pose blocks to the observations,
-scatters U_n^T x to the points (`index_add_`), applies H_pp^-1, and scatters
-back to the poses; block-Jacobi preconditioned CG solves it (60 iterations).
+sums U_n^T x onto the points, applies H_pp^-1, and sums back onto the poses;
+block-Jacobi preconditioned CG solves it (60 iterations).
+
+Every sum of a solve adds its rows in one fixed order (`optim/segments.py`,
+the reference's `.at[].add`): onto the points by a stable sort of the rows'
+point index, built once a solve before the LM loop, and a segment sum in
+ascending row order; onto the poses, whose rows are the [K, C, F] grid, as
+a sum over each keyframe's block.  No sum adds with atomics, so one input
+gives the same bits on every call, on the card as on the CPU (card and CPU
+agree to a tolerance: they add in other orders).
 
 `dispatch_global_ba` only enqueues work on the device: it reads nothing back
 to the host.  To that end the 3x3 point inverses are closed form, the 6x6
 preconditioner is `torch.linalg.inv_ex` (no error check), the annealed
 gate's quantile is a sort and a written-out linear interpolation, and the
-loops have fixed trip counts with accept / reject as `torch.where`.  The
-scatters accumulate with atomics on the card, so card and CPU agree to a
-tolerance, not to the bit (and two calls on the card on the same inputs
-may differ in the last bits).
+loops have fixed trip counts with accept / reject as `torch.where`.
 
 `run_global_ba_arrays` is `graphs.graphed` (`cfg` and `n_outer` static, as
 the reference's `run_global_ba_jit`): `dispatch_global_ba` enqueues it as
@@ -35,6 +40,7 @@ from ..geometry import se3
 from ..utils import graphs
 from . import residuals
 from .pose_opt import CHI2_MONO, CHI2_STEREO
+from .segments import Segments
 
 CG_ITERS = 60
 
@@ -74,11 +80,10 @@ def _robust_rows(e, is_st, posd, obs_ok, obs_is2):
     return act, row, chi2, delta, Wr
 
 
-def _point_blocks(M, mp_idx, Jp, Wr):
+def _point_blocks(to_mp: Segments, Jp, Wr):
     """H_pp [M, 3, 3]: each point's sum of J_p^T W J_p over its rows."""
     JTpW = Jp * Wr[:, :, None]
-    out = torch.zeros((M, 3, 3), dtype=Jp.dtype, device=Jp.device)
-    return out.index_add_(0, mp_idx, residuals.outer_rows(JTpW, Jp)), JTpW
+    return to_mp.sum(residuals.outer_rows(JTpW, Jp)), JTpW
 
 
 def point_information(mp_pos, mp_idx, obs_ok, obs_is2, residual_state, kf_Tcw):
@@ -88,11 +93,11 @@ def point_information(mp_pos, mp_idx, obs_ok, obs_is2, residual_state, kf_Tcw):
     smallest eigenvalue says how well the observations fix it."""
     e, _, Jp, is_st, posd = residual_state(kf_Tcw, mp_pos, True)
     Wr = _robust_rows(e, is_st, posd, obs_ok, obs_is2)[-1]
-    return _point_blocks(mp_pos.shape[0], mp_idx, Jp, Wr)[0]
+    return _point_blocks(Segments.of_index(mp_idx, mp_pos.shape[0], obs_ok), Jp, Wr)[0]
 
 
 def schur_lm(kf_Tcw, mp_pos, kf_free, mp_valid, obs_kf, mp_idx, obs_ok, obs_is2,
-             residual_state, n_outer, cg_iters, reduce=lambda t: t):
+             residual_state, n_outer, cg_iters, reduce=lambda t: t, to_kf=None):
     """The LM outer loop over the matrix-free Schur complement, on N flat
     observation rows: Huber weights, the point system (local: a point's
     observations are all in this call), the camera system and right-hand
@@ -101,10 +106,14 @@ def schur_lm(kf_Tcw, mp_pos, kf_free, mp_valid, obs_kf, mp_idx, obs_ok, obs_is2,
 
     `obs_kf` [N] indexes the K poses, `mp_idx` [N] the points `mp_pos`
     holds; `residual_state(Tcw, pos, want_jac)` returns the rows' (e [N, 3],
-    Jc, Jp, is_st [N], posd [N]).  `reduce` sums a tensor over the processes
-    that hold the other points (the distributed BA's `all_reduce`; the
-    identity for one process): the camera system with its gradient and
-    coupling term in one call, one call per matvec, the two costs in one.
+    Jc, Jp, is_st [N], posd [N]).  Sums onto the points go through a
+    `Segments` of `mp_idx` over the rows in `obs_ok` (rows outside it add
+    zeros), built here once; sums onto the poses through `to_kf`, or else a
+    `Segments` of `obs_kf` built the same way.  `reduce` sums a tensor over
+    the processes that hold the other points (the distributed BA's
+    `all_reduce`; the identity for one process): the camera system with its
+    gradient and coupling term in one call, one call per matvec, the two
+    costs in one.
     Returns (Tcw, pos, costs [n_outer], the cost before each iteration)."""
     K, M = kf_Tcw.shape[0], mp_pos.shape[0]
     dev, dtype = mp_pos.device, mp_pos.dtype
@@ -112,10 +121,10 @@ def schur_lm(kf_Tcw, mp_pos, kf_free, mp_valid, obs_kf, mp_idx, obs_ok, obs_is2,
     free_o = free_f[obs_kf][:, None, None]
     pad_pts = torch.where(mp_valid, 0.0, 1.0)[:, None, None] * torch.eye(3, dtype=dtype, device=dev)
     pad_kfs = torch.where(kf_free, 0.0, 1.0)[:, None, None] * torch.eye(6, dtype=dtype, device=dev)
-
-    def scatter(n_rows, idx, v):
-        out = torch.zeros((n_rows,) + v.shape[1:], dtype=dtype, device=dev)
-        return out.index_add_(0, idx, v)
+    # the rows' fixed order of summation, the same for every iteration
+    to_mp = Segments.of_index(mp_idx, M, obs_ok)
+    if to_kf is None:
+        to_kf = Segments.of_index(obs_kf, K, obs_ok)
 
     def rho(c2, delta):
         r = torch.sqrt(torch.clamp(c2, min=1e-12))
@@ -130,25 +139,25 @@ def schur_lm(kf_Tcw, mp_pos, kf_free, mp_valid, obs_kf, mp_idx, obs_ok, obs_is2,
 
         Jc_eff = Jc * free_o
         JTcW = Jc_eff * Wr[:, :, None]
-        Hpp, JTpW = _point_blocks(M, mp_idx, Jp, Wr)
-        bp = scatter(M, mp_idx, residuals.jte_rows(JTpW, e))
+        Hpp, JTpW = _point_blocks(to_mp, Jp, Wr)
+        bp = to_mp.sum(residuals.jte_rows(JTpW, e))
         # per-observation camera-point coupling block U_n [6, 3]
         U = residuals.outer_rows(JTcW, Jp)
         Hpp_inv = inv3(_damp_blocks(Hpp, lam) + pad_pts)
         zb = residuals.bmv(Hpp_inv, bp)
 
         # Hcc, bc and W Hpp^-1 bp, summed over the processes in one call
-        sysc = reduce(torch.cat([
-            scatter(K, obs_kf, residuals.outer_rows(JTcW, Jc_eff)).reshape(K, 36),
-            scatter(K, obs_kf, residuals.jte_rows(JTcW, e)),
-            scatter(K, obs_kf, residuals.bmv(U, zb[mp_idx]))], dim=1))
+        sysc = reduce(to_kf.sum(torch.cat([
+            residuals.outer_rows(JTcW, Jc_eff).reshape(-1, 36),
+            residuals.jte_rows(JTcW, e),
+            residuals.bmv(U, zb[mp_idx])], dim=1)))
         Hcc_d = _damp_blocks(sysc[:, :36].reshape(K, 6, 6), lam)
         rhs = (sysc[:, 36:42] - sysc[:, 42:]) * free_f[:, None]
 
         def S_matvec(x):  # x [K, 6]
-            y = scatter(M, mp_idx, residuals.bmtv(U, x[obs_kf]))     # sum U^T x -> [M, 3]
+            y = to_mp.sum(residuals.bmtv(U, x[obs_kf]))     # sum U^T x -> [M, 3]
             z = residuals.bmv(Hpp_inv, y)
-            WHWx = reduce(scatter(K, obs_kf, residuals.bmv(U, z[mp_idx])))   # sum U z -> [K, 6]
+            WHWx = reduce(to_kf.sum(residuals.bmv(U, z[mp_idx])))   # sum U z -> [K, 6]
             return (residuals.bmv(Hcc_d, x) - WHWx) * free_f[:, None]
 
         # block-Jacobi preconditioner from the damped Hcc
@@ -176,7 +185,7 @@ def schur_lm(kf_Tcw, mp_pos, kf_free, mp_valid, obs_kf, mp_idx, obs_ok, obs_is2,
         dxc = x * free_f[:, None]
 
         # back-substitute points: dp = -Hpp_inv (bp + W^T dxc)
-        WTdx = scatter(M, mp_idx, residuals.bmtv(U, dxc[obs_kf]))
+        WTdx = to_mp.sum(residuals.bmtv(U, dxc[obs_kf]))
         dp = -residuals.bmv(Hpp_inv, bp + WTdx) * mp_valid[:, None]
 
         Tcw_new = se3.exp(dxc) @ Tcw_all
@@ -230,8 +239,10 @@ def make_global_ba(cfg: SlamConfig):
              mp_pos, mp_valid, T_rc, K_intr, bf, n_outer, cg_iters):
         obs_kf, mp_idx, obs_ok, residual_state = _flat_problem(
             kf_valid, kf_mp, obs_uvr, mp_valid, T_rc, K_intr, bf)
+        K, C, F = kf_mp.shape
         Tcw, pos, _ = schur_lm(kf_Tcw, mp_pos, kf_free, mp_valid, obs_kf, mp_idx, obs_ok,
-                               obs_is2.reshape(-1), residual_state, n_outer, cg_iters)
+                               obs_is2.reshape(-1), residual_state, n_outer, cg_iters,
+                               to_kf=Segments.blocks(K, C * F))
         return Tcw, pos
 
     return step

@@ -9,10 +9,15 @@ Per-edge residuals e = log(S_meas * S_i * S_j^-1) over a fixed-capacity edge
 list; per-edge 7x7 Jacobian blocks by forward-mode autodiff through the Sim3
 exp / log (`sim3.jacfwd_batched`: one jvp over 14 tangent copies of the
 edge batch, which is what `vmap(jacfwd(...))` per edge computes); a dense damped [7K, 7K] normal system solved
-with `torch.linalg.solve_ex`.  The blocks are added into a [K*K, 7, 7] view
-with `index_add_`, which accumulates repeated (i, j) pairs as the
-reference's `.at[].add` does (on the card with atomics, so in no fixed
-order: two calls on the same inputs may differ in the last bits).
+with `torch.linalg.solve_ex`.  The blocks are summed into a [K*K, 7, 7] view
+and the gradient into [K, 7] as the reference's `.at[].add` sums them,
+repeated (i, j) pairs included, but in one fixed order
+(`optim/segments.py`): the edge list is fixed over the iterations, so the
+stable sorts of the four block indices and of the two gradient indices are
+built once before the loop, and each iteration adds each segment's rows in
+ascending order, with no atomics.  Padded edges (`e_ok` False) are left out
+of the sums, so where they sit does not matter, and two calls on one input
+give the same bits on the card.
 
 `optimize_essential_graph` is `graphs.graphed` (`n_iters` and `fix_scale`
 static, as the reference's `static_argnums=(6, 7)`): one CUDA graph replay
@@ -27,6 +32,7 @@ import torch
 
 from ..geometry import sim3
 from ..utils import graphs
+from .segments import Segments
 
 
 def edge_residual(g_all: torch.Tensor, xi_all: torch.Tensor, i, j,
@@ -56,7 +62,10 @@ def optimize_essential_graph(
     dof = sim3.free_scale_mask(fix_scale, dtype, dev)
     ei, ej = e_i.long(), e_j.long()
     w = e_ok.to(dtype)
-    pair_ii, pair_jj, pair_ij, pair_ji = ei * K + ei, ej * K + ej, ei * K + ej, ej * K + ei
+    # the blocks' rows in the order ii, jj, ij, ji; the gradient's in i, j
+    to_H = Segments.of_index(torch.cat([ei * K + ei, ej * K + ej, ei * K + ej, ej * K + ei]),
+                             K * K, e_ok.repeat(4))
+    to_b = Segments.of_index(torch.cat([ei, ej]), K, e_ok.repeat(2))
     free7 = (kf_free[:, None].to(dtype) * dof[None, :]).reshape(K * 7) > 0
     zeros = torch.zeros((E, 14), dtype=dtype, device=dev)
 
@@ -79,14 +88,12 @@ def optimize_essential_graph(
         Ji, Jj = J[:, :, 0, :], J[:, :, 1, :]
         JiT, JjT = Ji * w[:, None, None], Jj * w[:, None, None]
         # normal equations over free dofs, as blocks of a [K, K, 7, 7] array
-        Hkk = torch.zeros((K * K, 7, 7), dtype=dtype, device=dev)
-        Hkk.index_add_(0, pair_ii, torch.einsum("eri,erj->eij", JiT, Ji))
-        Hkk.index_add_(0, pair_jj, torch.einsum("eri,erj->eij", JjT, Jj))
-        Hkk.index_add_(0, pair_ij, torch.einsum("eri,erj->eij", JiT, Jj))
-        Hkk.index_add_(0, pair_ji, torch.einsum("eri,erj->eij", JjT, Ji))
-        b = torch.zeros((K, 7), dtype=dtype, device=dev)
-        b.index_add_(0, ei, torch.einsum("eri,er->ei", JiT, e0))
-        b.index_add_(0, ej, torch.einsum("eri,er->ei", JjT, e0))
+        Hkk = to_H.sum(torch.cat([torch.einsum("eri,erj->eij", JiT, Ji),
+                                  torch.einsum("eri,erj->eij", JjT, Jj),
+                                  torch.einsum("eri,erj->eij", JiT, Jj),
+                                  torch.einsum("eri,erj->eij", JjT, Ji)]))
+        b = to_b.sum(torch.cat([torch.einsum("eri,er->ei", JiT, e0),
+                                torch.einsum("eri,er->ei", JjT, e0)]))
 
         Hf = Hkk.reshape(K, K, 7, 7).permute(0, 2, 1, 3).reshape(K * 7, K * 7)
         d = torch.diagonal(Hf)

@@ -17,7 +17,10 @@ Layout (as the reference's):
 The math is the reference's `local_step` (matrix-free Schur complement,
 block-Jacobi PCG, LM outer loop): the single-process global BA's solver,
 `optim/global_ba.schur_lm`, run on the rank's observation rows with each sum
-over the ranks an `all_reduce`.  The step reads nothing back to the host:
+over the ranks an `all_reduce`.  A rank's own sums onto its points and onto
+the poses add its rows in one fixed order (`optim/segments.py`: the rows
+sorted by point and by pose once a step; pads left out), so a rank gives
+the same bits on every call.  The step reads nothing back to the host:
 fixed trip counts, accept / reject by `torch.where` on the summed costs,
 which every rank holds alike.  Three sums of the reference travel as one
 here (the camera system, its gradient and the right-hand side's coupling

@@ -256,8 +256,10 @@ def score_sparse_many(q_ids, q_vals, db_ids, db_vals, n_words: int):
     so only shared words contribute: scatter the query dense once
     ([n_words + 1] floats), gather it at every stored word id, reduce per
     row.  The scatter is an `index_add_`, unordered on the card: harmless,
-    because a query's valid ids are distinct and the pads, which share the
-    dump slot `n_words`, add 0.
+    because a query's valid ids are distinct but for `bow_sparse`'s repeats
+    of its last word where every feature is valid, which add exactly 0, and
+    the pads, which share the dump slot `n_words`, add 0: any order of the
+    adds gives the same bits.
     """
     q_ok = q_ids >= 0
     qd = torch.zeros(n_words + 1, dtype=q_vals.dtype, device=q_vals.device)

@@ -745,9 +745,11 @@ def test_gba_map_fixture_is_solved_on_the_cpu():
 
 @pytest.mark.cuda
 def test_cuda_global_ba_matches_cpu():
-    """`dispatch_global_ba` on the card against the CPU on one problem (its
-    scatters add with atomics on the card, in no fixed order): keyframe poses
-    within 1e-3, points within 1e-3 m."""
+    """`dispatch_global_ba` on the card against the CPU on one problem: the
+    same sums in the same fixed order of rows, but the poses' block sums
+    (`sum(1)`) and the card's fused arithmetic round apart from the CPU's,
+    and LM iterations carry that on: keyframe poses within 1e-3, points
+    within 1e-3 m."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from multi_orb_slam_tpu_torch.optim import global_ba
@@ -783,6 +785,26 @@ def test_cuda_dispatch_global_ba_reads_nothing_back():
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
     assert bool(torch.isfinite(Tcw).all() and torch.isfinite(pos).all())
+
+
+@pytest.mark.cuda
+def test_cuda_dispatch_global_ba_gives_the_same_bits_twice():
+    """The global BA adds every sum in one fixed order (`optim/segments.py`),
+    so on the card two dispatches on one map (replays of its graph) are the
+    same bits, and so are two calls of its body under `graphs.eager()`."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from multi_orb_slam_tpu_torch.optim import global_ba
+    from multi_orb_slam_tpu_torch.utils import graphs
+
+    st, calib, cfg = _gba_map("cuda")
+    runs = [global_ba.dispatch_global_ba(st, calib, cfg, n_outer=9) for _ in range(2)]
+    with graphs.eager():
+        runs += [global_ba.dispatch_global_ba(st, calib, cfg, n_outer=9) for _ in range(2)]
+    for a, b in (runs[:2], runs[2:]):
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+    print(f"global BA on the card: two replays and two eager calls each the same bits; replay "
+          f"against eager poses {float((runs[0][0] - runs[2][0]).abs().max()):.3e}")
 
 
 KITTI_H, KITTI_W = 376, 1241      # KITTI 00-02's published image size
@@ -1095,10 +1117,11 @@ def graph_cases():
 
 def _hold_replays(name, fn, args_a, args_b, close=None):
     """`fn` (graphed) on two inputs of one signature: each replay is the
-    same bits as the body called eagerly (`graphs.eager()`), or, where the
-    body sums with atomics in no fixed order, `close(args, out, eager)`
-    holds (a pass flag and a reading; the reading of two eager calls is
-    printed beside it); the second replay leaves the first one's outputs
+    same bits as the body called eagerly (`graphs.eager()`), or, where a
+    check is given (the pose graph and the global BA, whose replays were
+    held to tolerances when they summed with atomics), `close(args, out,
+    eager)` holds (a pass flag and a reading; the reading of two eager calls
+    is printed beside it); the second replay leaves the first one's outputs
     intact, both go through one entry, and each replay adds its capture's
     launches to the counts and nothing more."""
     from multi_orb_slam_tpu_torch.utils import graphs
@@ -1229,8 +1252,8 @@ def _poses_close(args, out, ref):
 
 def _gba_close(args, out, ref):
     """The global BA's poses within GBA_POSE_TOL and its points in their
-    information metric: float `index_add_` sums in no fixed order on the
-    card, and a point that one observation holds slides along its ray."""
+    information metric (a point that one observation holds slides along its
+    ray with any rounding)."""
     d = float((out[0] - ref[0]).abs().max())
     maha, held = _gba_points_apart(args[:2], ref[0], ref[1], out[1])
     ok = d <= GBA_POSE_TOL and maha <= GBA_MAHALANOBIS and held <= 1e-3
@@ -1377,12 +1400,29 @@ def _perturbed_loop_args(name, args):
 def test_cuda_loop_graphed_replays_are_the_eager_calls(loop_run, name):
     """Each of the loop's graphed functions on the arguments of its first
     call in the circuit and on moved ones (`_perturbed_loop_args`): each
-    replay is the eager call's bits, or within the stated tolerance where
-    float `index_add_` sums in no fixed order (the pose graph's poses to
-    1e-4; the global BA's poses to 1e-3 and its points in their information
-    metric, `_gba_close`), with two eager calls' spread printed beside it."""
+    replay is the eager call's bits, or within the stated tolerance (the
+    pose graph's poses to 1e-4; the global BA's poses to 1e-3 and its points
+    in their information metric, `_gba_close`), with two eager calls' spread
+    printed beside it."""
     fn, args = loop_run["calls"][name]
     _hold_replays(name, fn, args, _perturbed_loop_args(name, args), LOOP_GRAPHED[name][1])
+
+
+@pytest.mark.cuda
+def test_cuda_essential_graph_gives_the_same_bits_twice(loop_run):
+    """`optimize_essential_graph` on the arguments of its call at the loop
+    keyframe: two replays the same bits, and two eager calls (its sums add
+    in one fixed order, `optim/segments.py`)."""
+    from multi_orb_slam_tpu_torch.optim import pose_graph
+    from multi_orb_slam_tpu_torch.utils import graphs
+
+    _, args = loop_run["calls"]["optimize_essential_graph"]
+    runs = [pose_graph.optimize_essential_graph(*args) for _ in range(2)]
+    with graphs.eager():
+        runs += [pose_graph.optimize_essential_graph(*args) for _ in range(2)]
+    assert torch.equal(runs[0], runs[1]) and torch.equal(runs[2], runs[3])
+    print(f"essential graph on the card: two replays and two eager calls each the same bits; "
+          f"replay against eager {float((runs[0] - runs[2]).abs().max()):.3e}")
 
 
 @pytest.mark.cuda
@@ -1392,8 +1432,7 @@ def test_cuda_loop_keyframe_on_graphs_is_the_eager_run(loop_run):
     `graphs.eager()`, each on a fresh `LoopCloser`: the same loop keyframe,
     total and Sim3 bits, the same fused observations, the corrected poses
     within LOOP_POSE_TOL, the merged map's poses and points as
-    `_gba_close` holds a global BA's (the pose graph and the global BA sum
-    with atomics)."""
+    `_gba_close` holds a global BA's."""
     import contextlib
 
     from multi_orb_slam_tpu_torch.loop import loop_closing

@@ -84,6 +84,20 @@ def world():
 # ---------------------------------------------------------------------------
 
 
+def test_hamming_big_and_popcount32_are_the_reference_names():
+    """`ops/hamming.py` defines the reference's `BIG` and `popcount32` at the
+    same path: the sentinel's value, and the popcount of 4096 seeded uint32
+    words (0, all ones and each end bit among them) bit-equal to JAX's."""
+    rng = np.random.RandomState(7)
+    w = rng.randint(0, 2**32, 4096, dtype=np.uint64).astype(np.uint32)
+    w[:4] = [0, 0xFFFFFFFF, 0x80000000, 0x00000001]
+    assert t_ham.BIG == int(j_ham.BIG)
+    assert t_ham.popcount32.__module__ == t_ham.__name__
+    got = _n(t_ham.popcount32(_t(w)))
+    np.testing.assert_array_equal(got, np.asarray(j_ham.popcount32(jnp.asarray(w))))
+    assert got[:4].tolist() == [0, 32, 1, 1]
+
+
 def test_hamming_primitives():
     rng = np.random.RandomState(0)
     a = rng.randint(0, 2**32, (40, 8), dtype=np.uint64).astype(np.uint32)
