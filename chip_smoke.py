@@ -1540,6 +1540,7 @@ def phase_system_reloc(frames, poses_gt, calib, cfg):
     from multi_orb_slam_tpu_torch.ops import kernels
     from multi_orb_slam_tpu_torch.placerec import database
     from multi_orb_slam_tpu_torch.reloc import relocalization
+    from multi_orb_slam_tpu_torch.utils import metrics
 
     def clone(nt):
         return type(nt)(*[v.clone() if isinstance(v, torch.Tensor) else v for v in nt])
@@ -1547,91 +1548,92 @@ def phase_system_reloc(frames, poses_gt, calib, cfg):
     sys_ = system_mod.System(sensor=system_mod.Sensor.DUAL_RGBD, calib=calib, cfg=cfg)
     sys_.loop_closer = loop_closing.LoopCloser(sys_.calib, cfg,
                                                vocab_min_descs=SMOKE_VOCAB_MIN_DESCS)
-    print(f"system-reloc: System(DUAL_RGBD) on {sys_.device}, unpipelined, mapping and loop "
-          f"stage on; LoopCloser(vocab_min_descs={SMOKE_VOCAB_MIN_DESCS}) instead of "
-          f"{loop_closing.VOCAB_MIN_DESCS}: the orbit has 4 keyframes in {len(frames)} frames "
-          f"(vocabulary k = {sys_.loop_closer.vocab_k}, depth {sys_.loop_closer.vocab_depth}, "
-          f"default SlamConfig otherwise)")
-    relocs, stash = [], []
-    inner = sys_.tracker.reloc_cb
+    with metrics.tracing():     # the timing report below reads the tracer's spans
+        print(f"system-reloc: System(DUAL_RGBD) on {sys_.device}, unpipelined, mapping and loop "
+              f"stage on; LoopCloser(vocab_min_descs={SMOKE_VOCAB_MIN_DESCS}) instead of "
+              f"{loop_closing.VOCAB_MIN_DESCS}: the orbit has 4 keyframes in {len(frames)} frames "
+              f"(vocabulary k = {sys_.loop_closer.vocab_k}, depth {sys_.loop_closer.vocab_depth}, "
+              f"default SlamConfig otherwise)")
+        relocs, stash = [], []
+        inner = sys_.tracker.reloc_cb
 
-    def reloc_cb(fr):
-        inputs = (sys_.tracker.map, fr, sys_.loop_closer.voc, sys_.loop_closer.db,
-                  sys_.calib, cfg)
-        if sys_.loop_closer.voc is not None and not stash:
-            # copies for the profiled call after the path (the database is
-            # written in place by later keyframes)
-            kept = tuple(clone(x) if isinstance(x, tuple) else x for x in inputs)
-        else:
-            kept = None
-        s0, l0 = dict(relocalization.STATS), dict(kernels.LAUNCHES)
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        out = inner(fr)
-        torch.cuda.synchronize()
-        relocs.append({
-            "frame": sys_.tracker.frame_id, "ok": bool(out[0]), "inliers": int(out[3]),
-            "ms": (time.perf_counter() - t) * 1e3,
-            "candidates": relocalization.STATS["candidates"] - s0["candidates"],
-            "host_reads": relocalization.STATS["host_reads"] - s0["host_reads"],
-            "window_match": kernels.LAUNCHES["window_match"] - l0["window_match"]})
-        if out[0] and kept is not None:
-            stash.append(kept)
-        return out
+        def reloc_cb(fr):
+            inputs = (sys_.tracker.map, fr, sys_.loop_closer.voc, sys_.loop_closer.db,
+                      sys_.calib, cfg)
+            if sys_.loop_closer.voc is not None and not stash:
+                # copies for the profiled call after the path (the database is
+                # written in place by later keyframes)
+                kept = tuple(clone(x) if isinstance(x, tuple) else x for x in inputs)
+            else:
+                kept = None
+            s0, l0 = dict(relocalization.STATS), dict(kernels.LAUNCHES)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = inner(fr)
+            torch.cuda.synchronize()
+            relocs.append({
+                "frame": sys_.tracker.frame_id, "ok": bool(out[0]), "inliers": int(out[3]),
+                "ms": (time.perf_counter() - t) * 1e3,
+                "candidates": relocalization.STATS["candidates"] - s0["candidates"],
+                "host_reads": relocalization.STATS["host_reads"] - s0["host_reads"],
+                "window_match": kernels.LAUNCHES["window_match"] - l0["window_match"]})
+            if out[0] and kept is not None:
+                stash.append(kept)
+            return out
 
-    sys_.tracker.reloc_cb = reloc_cb
-    blank_g = torch.full_like(frames[0][0], 100.0)
-    blank_d = torch.zeros_like(frames[0][1])
-    calls0 = entry_calls()
-    kernels.reset_launch_counts()
-    states, times, blank_at, vocab_at = [], [], [], None
-    for i, (g, d) in enumerate(frames):
-        if vocab_at is None and sys_.loop_closer.voc is not None:
-            vocab_at = i
-        blank = (vocab_at is not None and len(blank_at) < N_BLANK
-                 and i >= vocab_at + BLANK_AFTER_VOCAB)
-        if blank:
-            blank_at.append(i)
-            g, d = blank_g, blank_d
+        sys_.tracker.reloc_cb = reloc_cb
+        blank_g = torch.full_like(frames[0][0], 100.0)
+        blank_d = torch.zeros_like(frames[0][1])
+        calls0 = entry_calls()
+        kernels.reset_launch_counts()
+        states, times, blank_at, vocab_at = [], [], [], None
+        for i, (g, d) in enumerate(frames):
+            if vocab_at is None and sys_.loop_closer.voc is not None:
+                vocab_at = i
+            blank = (vocab_at is not None and len(blank_at) < N_BLANK
+                     and i >= vocab_at + BLANK_AFTER_VOCAB)
+            if blank:
+                blank_at.append(i)
+                g, d = blank_g, blank_d
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            sys_.track_rgbd(g[0], d[0], g[1], d[1], timestamp=i / 30.0)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+            states.append(sys_.get_tracking_state())
+        traj = sys_.tracker.absolute_trajectory()
         torch.cuda.synchronize()
-        t = time.perf_counter()
-        sys_.track_rgbd(g[0], d[0], g[1], d[1], timestamp=i / 30.0)
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t) * 1e3)
-        states.append(sys_.get_tracking_state())
-    traj = sys_.tracker.absolute_trajectory()
-    torch.cuda.synchronize()
-    launches = dict(kernels.LAUNCHES)
-    replayed = replayed_launches(calls0)
+        launches = dict(kernels.LAUNCHES)
+        replayed = replayed_launches(calls0)
 
-    n = len(frames)
-    tracked = [i for i, (*_, lost) in enumerate(traj) if not lost]
-    gt_c = map_gauge_centres(poses_gt[:n])
-    est_c = np.stack([np.linalg.inv(np.asarray(T, np.float64))[:3, 3] for _, _, T, _ in traj])
-    ate = float(align.ate_rmse(torch.from_numpy(est_c[tracked]), torch.from_numpy(gt_c[tracked])))
-    last_err = float(np.linalg.norm(est_c[-1] - gt_c[-1]))
-    st = sys_.map
-    found = [r for r in relocs if r["ok"]]
-    ms = np.asarray(times)
-    train_s = sys_.loop_closer.vocab_train_seconds
-    print(f"  vocabulary of {sys_.loop_closer.voc.n_words if sys_.loop_closer.voc else 0} words "
-          f"trained on the host in {train_s if train_s is not None else float('nan'):.2f} s, "
-          f"ready before frame {vocab_at}; blank frames {blank_at}")
-    print(f"  states {''.join(str(s) for s in states)} (1 OK, 2 LOST); frames tracked "
-          f"{len(tracked)}/{n}, keyframes {int(st.n_kf)}, map points {int(st.n_mp)}, "
-          f"keyframes indexed {int(sys_.loop_closer.db.has_bow.sum()) if sys_.loop_closer.db else 0}, "
-          f"loop candidates verified {len(sys_.loop_closer.verifications)}, "
-          f"loops closed {sys_.loop_closer.n_loops_closed}")
-    print(f"  track_rgbd median {np.median(ms):.2f} ms/frame (max {ms.max():.2f}, total "
-          f"{ms.sum() / 1e3:.2f} s); ATE over the tracked frames {ate * 1e3:.3f} mm; last pose "
-          f"{last_err * 1e3:.2f} mm from ground truth")
-    for r in relocs:
-        print(f"  relocalize at frame {r['frame']}: found {r['ok']}, {r['inliers']} inliers, "
-              f"{r['ms']:.2f} ms, {r['candidates']} candidates tried, {r['host_reads']} host "
-              f"reads, {r['window_match']} window_match launches")
-    print(f"  kernel launches: {launches}; of the replays (calls x captures' counts) {replayed}")
-    for line in sys_.timing_report().splitlines():
-        print(f"    {line}")
+        n = len(frames)
+        tracked = [i for i, (*_, lost) in enumerate(traj) if not lost]
+        gt_c = map_gauge_centres(poses_gt[:n])
+        est_c = np.stack([np.linalg.inv(np.asarray(T, np.float64))[:3, 3] for _, _, T, _ in traj])
+        ate = float(align.ate_rmse(torch.from_numpy(est_c[tracked]), torch.from_numpy(gt_c[tracked])))
+        last_err = float(np.linalg.norm(est_c[-1] - gt_c[-1]))
+        st = sys_.map
+        found = [r for r in relocs if r["ok"]]
+        ms = np.asarray(times)
+        train_s = sys_.loop_closer.vocab_train_seconds
+        print(f"  vocabulary of {sys_.loop_closer.voc.n_words if sys_.loop_closer.voc else 0} words "
+              f"trained on the host in {train_s if train_s is not None else float('nan'):.2f} s, "
+              f"ready before frame {vocab_at}; blank frames {blank_at}")
+        print(f"  states {''.join(str(s) for s in states)} (1 OK, 2 LOST); frames tracked "
+              f"{len(tracked)}/{n}, keyframes {int(st.n_kf)}, map points {int(st.n_mp)}, "
+              f"keyframes indexed {int(sys_.loop_closer.db.has_bow.sum()) if sys_.loop_closer.db else 0}, "
+              f"loop candidates verified {len(sys_.loop_closer.verifications)}, "
+              f"loops closed {sys_.loop_closer.n_loops_closed}")
+        print(f"  track_rgbd median {np.median(ms):.2f} ms/frame (max {ms.max():.2f}, total "
+              f"{ms.sum() / 1e3:.2f} s); ATE over the tracked frames {ate * 1e3:.3f} mm; last pose "
+              f"{last_err * 1e3:.2f} mm from ground truth")
+        for r in relocs:
+            print(f"  relocalize at frame {r['frame']}: found {r['ok']}, {r['inliers']} inliers, "
+                  f"{r['ms']:.2f} ms, {r['candidates']} candidates tried, {r['host_reads']} host "
+                  f"reads, {r['window_match']} window_match launches")
+        print(f"  kernel launches: {launches}; of the replays (calls x captures' counts) {replayed}")
+        for line in sys_.timing_report().splitlines():
+            print(f"    {line}")
     if len(blank_at) != N_BLANK:
         raise AssertionError(f"system-reloc: the vocabulary came too late (frame {vocab_at}) "
                              f"for {N_BLANK} blank frames")
@@ -1856,7 +1858,7 @@ def phase_system_loop(dev):
     from multi_orb_slam_tpu_torch.ops import kernels
     from multi_orb_slam_tpu_torch.optim import global_ba, pose_graph
     from multi_orb_slam_tpu_torch.placerec import database
-    from multi_orb_slam_tpu_torch.utils import graphs
+    from multi_orb_slam_tpu_torch.utils import graphs, metrics
 
     calib, cfg, frames, poses_gt = loop_scene(dev)
     print(f"system-loop: System(DUAL_RGBD) on the card, unpipelined, mapping and loop closing "
@@ -1867,144 +1869,145 @@ def phase_system_loop(dev):
     sys_ = system_mod.System(sensor=system_mod.Sensor.DUAL_RGBD, calib=calib, cfg=cfg)
     lc = sys_.loop_closer
     lc.voc, lc.db = voc, database.make_empty_db(cfg.max_kf, voc.n_words)
+    with metrics.tracing():     # the timing report below reads the tracer's spans
 
-    # host clocks of the loop stages, read per closing keyframe
-    stages = collections.defaultdict(list)
+        # host clocks of the loop stages, read per closing keyframe
+        stages = collections.defaultdict(list)
 
-    def timed(name, fn, sync_after=True):
-        def inner(*a, **k):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            out = fn(*a, **k)
-            if sync_after:
+        def timed(name, fn, sync_after=True):
+            def inner(*a, **k):
                 torch.cuda.synchronize()
-            stages[name].append({"frame": sys_.tracker.frame_id,
-                                 "ms": (time.perf_counter() - t) * 1e3})
-            return out
-        return inner
+                t = time.perf_counter()
+                out = fn(*a, **k)
+                if sync_after:
+                    torch.cuda.synchronize()
+                stages[name].append({"frame": sys_.tracker.frame_id,
+                                     "ms": (time.perf_counter() - t) * 1e3})
+                return out
+            return inner
 
-    enqueue = global_ba.dispatch_global_ba
+        enqueue = global_ba.dispatch_global_ba
 
-    def dispatch(*a, **k):
-        t = time.perf_counter()
-        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        e0.record()
-        out = enqueue(*a, **k)
-        e1.record()
-        stages["dispatch_global_ba"].append({"frame": sys_.tracker.frame_id, "events": (e0, e1),
-                                             "ms": (time.perf_counter() - t) * 1e3})
-        return out
-
-    merge = lc.merge_pending_gba
-    # copies of the inputs of the loop keyframe's stages, for the graphs
-    # against eager split after the run
-    stash = {}
-
-    def stashed(key, fn, when=lambda out: True):
-        def inner(*a):
-            kept = graphs.clone(a) if key not in stash else None
-            pairs = list(lc.loop_pairs)
-            out = fn(*a)
-            if kept is not None and when(out):
-                stash[key] = kept
-                if key == "correct":
-                    stash["loop_pairs"] = pairs
-                if key == "compute":
-                    stash["frame"] = sys_.tracker.frame_id
-            return out
-        return inner
-
-    def merge_timed(state):
-        if lc._gba_pending is None:
-            return merge(state)
-        if "merge" not in stash:
-            stash["merge"] = graphs.clone((state,) + lc._gba_pending)
-        return timed("merge_pending_gba", merge)(state)
-
-    lc._compute_sim3 = stashed("compute", timed("compute_sim3", lc._compute_sim3),
-                               when=lambda out: out is not None)
-    # host time until it returns: the global BA at its end is only enqueued
-    lc._correct_loop = stashed("correct", timed("correct_loop", lc._correct_loop,
-                                                sync_after=False))
-    lc.merge_pending_gba = merge_timed
-    patched = [(pose_graph, "optimize_essential_graph",
-                stashed("pose_graph", timed("pose_graph", pose_graph.optimize_essential_graph))),
-               (global_ba, "dispatch_global_ba",
-                lambda st, cal, cf, n_outer: stashed("dispatch", lambda *a: dispatch(
-                    *a, n_outer=n_outer))(st, cal, cf))]
-    originals = [(mod, name, getattr(mod, name)) for mod, name, _ in patched]
-    for mod, name, fn in patched:
-        setattr(mod, name, fn)
-    roles0 = dict(loop_closing.STATS)
-    states, times, map_frames = [], [], []
-    on_keyframe = sys_.tracker.kf_inserted_cb
-
-    def kf_cb(kf_slot):
-        map_frames.append(len(times))
-        return on_keyframe(kf_slot)
-
-    sys_.tracker.kf_inserted_cb = kf_cb
-    calls0 = entry_calls()
-    try:
-        kernels.reset_launch_counts()
-        for i, (g, d) in enumerate(frames):
-            torch.cuda.synchronize()
+        def dispatch(*a, **k):
             t = time.perf_counter()
-            sys_.track_rgbd(g[0], d[0], g[1], d[1], timestamp=i / 30.0)
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t) * 1e3)
-            states.append(sys_.get_tracking_state())
-        sys_.shutdown()
-        traj = sys_.tracker.absolute_trajectory()
-        torch.cuda.synchronize()
-        launches = dict(kernels.LAUNCHES)
-        replayed = replayed_launches(calls0)
-    finally:
-        for mod, name, fn in originals:
-            setattr(mod, name, fn)
-    roles = {k: v - roles0[k] for k, v in loop_closing.STATS.items()}
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = enqueue(*a, **k)
+            e1.record()
+            stages["dispatch_global_ba"].append({"frame": sys_.tracker.frame_id, "events": (e0, e1),
+                                                 "ms": (time.perf_counter() - t) * 1e3})
+            return out
 
-    lost = [i for i, (*_, is_lost) in enumerate(traj) if is_lost]
-    fids = [fid for fid, *_ in traj]
-    est = np.stack([np.linalg.inv(np.asarray(T, np.float64))[:3, 3] for _, _, T, _ in traj])
-    gt = np.stack([np.linalg.inv(poses_gt[min(f, LOOP_FRAMES - 1)])[:3, 3] for f in fids])
-    ate = float(align.ate_rmse(torch.from_numpy(est), torch.from_numpy(gt)))
-    gt_c = map_gauge_centres(poses_gt)
-    last_err = float(np.linalg.norm(est[-1] - gt_c[fids[-1]]))
-    st = sys_.map
-    ms_ = np.asarray(times)
-    print(f"  states {''.join(str(x) for x in states)} (1 OK, 2 LOST)")
-    print(f"  frames tracked {len(traj) - len(lost)}/{len(traj)} (lost {lost}), keyframes "
-          f"{int(st.n_kf)}, map points {int(st.n_mp)}, loop candidates verified "
-          f"{len(lc.verifications)}; track_rgbd median {np.median(ms_):.2f} ms/frame (max "
-          f"{ms_.max():.2f}, total {ms_.sum() / 1e3:.2f} s)")
-    kf_ms = ms_[map_frames]
-    print(f"  frames that ran the keyframe stages (mapping graph, loop stage): "
-          f"{len(map_frames)}, median {np.median(kf_ms):.2f} ms, max {kf_ms.max():.2f} ms, "
-          f"{kf_ms.sum() / 1e3:.2f} s in all; the other frames median "
-          f"{np.median(np.delete(ms_, map_frames)):.2f} ms")
-    for v in lc.verifications:
-        print(f"  verification at keyframe frame {v['frame']}: kf_a {v['kf_a']} kf_b {v['kf_b']}, "
-              f"BoW pairs {v['bow']}, RANSAC inliers {v['ransac']}, LM inliers {v['lm']}, total "
-              f"{v['total']}, closed {v['accepted']}")
-    gba_ms = []
-    for rec in stages["dispatch_global_ba"]:
-        e0, e1 = rec.pop("events")
-        gba_ms.append(e0.elapsed_time(e1))
-    for name in ("compute_sim3", "correct_loop", "pose_graph", "dispatch_global_ba",
-                 "merge_pending_gba"):
-        rows = stages[name]
-        shown = [f"{r['ms']:.2f} at frame {r['frame']}" for r in rows]
-        print(f"  host ms of {name}: {', '.join(shown) if shown else 'never called'}")
-    print(f"  global BA on the device, events from before its dispatch to after its last "
-          f"launch: {', '.join(f'{x:.2f} ms' for x in gba_ms) or 'none'}")
-    print(f"  n_loops_closed {lc.n_loops_closed}, n_gba_merged {lc.n_gba_merged} after "
-          f"shutdown(); ATE over all {len(traj)} frames {ate:.4f} m, last pose {last_err:.4f} m "
-          f"from ground truth")
-    print(f"  window_match launches by loop role: {roles}")
-    print(f"  kernel launches: {launches}; of the replays (calls x captures' counts) {replayed}")
-    for line in sys_.timing_report().splitlines():
-        print(f"    {line}")
+        merge = lc.merge_pending_gba
+        # copies of the inputs of the loop keyframe's stages, for the graphs
+        # against eager split after the run
+        stash = {}
+
+        def stashed(key, fn, when=lambda out: True):
+            def inner(*a):
+                kept = graphs.clone(a) if key not in stash else None
+                pairs = list(lc.loop_pairs)
+                out = fn(*a)
+                if kept is not None and when(out):
+                    stash[key] = kept
+                    if key == "correct":
+                        stash["loop_pairs"] = pairs
+                    if key == "compute":
+                        stash["frame"] = sys_.tracker.frame_id
+                return out
+            return inner
+
+        def merge_timed(state):
+            if lc._gba_pending is None:
+                return merge(state)
+            if "merge" not in stash:
+                stash["merge"] = graphs.clone((state,) + lc._gba_pending)
+            return timed("merge_pending_gba", merge)(state)
+
+        lc._compute_sim3 = stashed("compute", timed("compute_sim3", lc._compute_sim3),
+                                   when=lambda out: out is not None)
+        # host time until it returns: the global BA at its end is only enqueued
+        lc._correct_loop = stashed("correct", timed("correct_loop", lc._correct_loop,
+                                                    sync_after=False))
+        lc.merge_pending_gba = merge_timed
+        patched = [(pose_graph, "optimize_essential_graph",
+                    stashed("pose_graph", timed("pose_graph", pose_graph.optimize_essential_graph))),
+                   (global_ba, "dispatch_global_ba",
+                    lambda st, cal, cf, n_outer: stashed("dispatch", lambda *a: dispatch(
+                        *a, n_outer=n_outer))(st, cal, cf))]
+        originals = [(mod, name, getattr(mod, name)) for mod, name, _ in patched]
+        for mod, name, fn in patched:
+            setattr(mod, name, fn)
+        roles0 = dict(loop_closing.STATS)
+        states, times, map_frames = [], [], []
+        on_keyframe = sys_.tracker.kf_inserted_cb
+
+        def kf_cb(kf_slot):
+            map_frames.append(len(times))
+            return on_keyframe(kf_slot)
+
+        sys_.tracker.kf_inserted_cb = kf_cb
+        calls0 = entry_calls()
+        try:
+            kernels.reset_launch_counts()
+            for i, (g, d) in enumerate(frames):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                sys_.track_rgbd(g[0], d[0], g[1], d[1], timestamp=i / 30.0)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t) * 1e3)
+                states.append(sys_.get_tracking_state())
+            sys_.shutdown()
+            traj = sys_.tracker.absolute_trajectory()
+            torch.cuda.synchronize()
+            launches = dict(kernels.LAUNCHES)
+            replayed = replayed_launches(calls0)
+        finally:
+            for mod, name, fn in originals:
+                setattr(mod, name, fn)
+        roles = {k: v - roles0[k] for k, v in loop_closing.STATS.items()}
+
+        lost = [i for i, (*_, is_lost) in enumerate(traj) if is_lost]
+        fids = [fid for fid, *_ in traj]
+        est = np.stack([np.linalg.inv(np.asarray(T, np.float64))[:3, 3] for _, _, T, _ in traj])
+        gt = np.stack([np.linalg.inv(poses_gt[min(f, LOOP_FRAMES - 1)])[:3, 3] for f in fids])
+        ate = float(align.ate_rmse(torch.from_numpy(est), torch.from_numpy(gt)))
+        gt_c = map_gauge_centres(poses_gt)
+        last_err = float(np.linalg.norm(est[-1] - gt_c[fids[-1]]))
+        st = sys_.map
+        ms_ = np.asarray(times)
+        print(f"  states {''.join(str(x) for x in states)} (1 OK, 2 LOST)")
+        print(f"  frames tracked {len(traj) - len(lost)}/{len(traj)} (lost {lost}), keyframes "
+              f"{int(st.n_kf)}, map points {int(st.n_mp)}, loop candidates verified "
+              f"{len(lc.verifications)}; track_rgbd median {np.median(ms_):.2f} ms/frame (max "
+              f"{ms_.max():.2f}, total {ms_.sum() / 1e3:.2f} s)")
+        kf_ms = ms_[map_frames]
+        print(f"  frames that ran the keyframe stages (mapping graph, loop stage): "
+              f"{len(map_frames)}, median {np.median(kf_ms):.2f} ms, max {kf_ms.max():.2f} ms, "
+              f"{kf_ms.sum() / 1e3:.2f} s in all; the other frames median "
+              f"{np.median(np.delete(ms_, map_frames)):.2f} ms")
+        for v in lc.verifications:
+            print(f"  verification at keyframe frame {v['frame']}: kf_a {v['kf_a']} kf_b {v['kf_b']}, "
+                  f"BoW pairs {v['bow']}, RANSAC inliers {v['ransac']}, LM inliers {v['lm']}, total "
+                  f"{v['total']}, closed {v['accepted']}")
+        gba_ms = []
+        for rec in stages["dispatch_global_ba"]:
+            e0, e1 = rec.pop("events")
+            gba_ms.append(e0.elapsed_time(e1))
+        for name in ("compute_sim3", "correct_loop", "pose_graph", "dispatch_global_ba",
+                     "merge_pending_gba"):
+            rows = stages[name]
+            shown = [f"{r['ms']:.2f} at frame {r['frame']}" for r in rows]
+            print(f"  host ms of {name}: {', '.join(shown) if shown else 'never called'}")
+        print(f"  global BA on the device, events from before its dispatch to after its last "
+              f"launch: {', '.join(f'{x:.2f} ms' for x in gba_ms) or 'none'}")
+        print(f"  n_loops_closed {lc.n_loops_closed}, n_gba_merged {lc.n_gba_merged} after "
+              f"shutdown(); ATE over all {len(traj)} frames {ate:.4f} m, last pose {last_err:.4f} m "
+              f"from ground truth")
+        print(f"  window_match launches by loop role: {roles}")
+        print(f"  kernel launches: {launches}; of the replays (calls x captures' counts) {replayed}")
+        for line in sys_.timing_report().splitlines():
+            print(f"    {line}")
 
     # the dispatch once more on a copy of the final map: no host synchronisation
     copy = type(st)(*[v.clone() for v in st])
@@ -3144,6 +3147,7 @@ def phase_driver_rgbd(dev):
     from multi_orb_slam_tpu_torch.drivers import rgbd_tum
     from multi_orb_slam_tpu_torch.io import png
     from multi_orb_slam_tpu_torch.ops import kernels
+    from multi_orb_slam_tpu_torch.utils import metrics
 
     with tempfile.TemporaryDirectory() as tmp:
         root = f"{tmp}/seq"
@@ -3152,23 +3156,24 @@ def phase_driver_rgbd(dev):
               f"written with the filter named: {png_decode_ms(tmp)}")
         out, kf_out = f"{tmp}/traj.txt", f"{tmp}/kf.txt"
         kernels.reset_launch_counts()
-        (rc, slam), text, secs = run_driver(rgbd_tum.run, [
-            str(REPO_DIR / "configs/multi.yaml"), root, f"{root}/associations.txt",
-            "--assoc2", f"{root}/associations2.txt",
-            "--calibration", str(REPO_DIR / "configs/calibration.txt"),
-            "--pipelined", "--no-realtime", "--out", out, "--kf-out", kf_out])
-        launches = dict(kernels.LAUNCHES)
-        centres, kfs = tum_centres(out), tum_centres(kf_out)
-        ate = centre_ate(centres, poses) if len(centres) == DRIVER_FRAMES else float("inf")
-        med = median_tracking_ms(text)
-        print(f"  System(pipelined={slam.tracker.pipelined}): trajectory lines {len(centres)}, "
-              f"keyframe lines {len(kfs)}, map points {int(slam.map.n_mp)}, ATE {ate * 1e3:.3f} mm, "
-              f"track_rgbd median {med:.2f} ms/frame, a whole frame (reading and decoding four "
-              f"PNGs, then tracking) median {median_frame_ms(text):.2f} ms; the driver's run "
-              f"{secs:.1f} s")
-        print(f"  kernel launches: {launches}")
-        for line in slam.timing_report().splitlines():
-            print(f"    {line}")
+        with metrics.tracing():     # the timing report below reads the tracer's spans
+            (rc, slam), text, secs = run_driver(rgbd_tum.run, [
+                str(REPO_DIR / "configs/multi.yaml"), root, f"{root}/associations.txt",
+                "--assoc2", f"{root}/associations2.txt",
+                "--calibration", str(REPO_DIR / "configs/calibration.txt"),
+                "--pipelined", "--no-realtime", "--out", out, "--kf-out", kf_out])
+            launches = dict(kernels.LAUNCHES)
+            centres, kfs = tum_centres(out), tum_centres(kf_out)
+            ate = centre_ate(centres, poses) if len(centres) == DRIVER_FRAMES else float("inf")
+            med = median_tracking_ms(text)
+            print(f"  System(pipelined={slam.tracker.pipelined}): trajectory lines {len(centres)}, "
+                  f"keyframe lines {len(kfs)}, map points {int(slam.map.n_mp)}, ATE {ate * 1e3:.3f} mm, "
+                  f"track_rgbd median {med:.2f} ms/frame, a whole frame (reading and decoding four "
+                  f"PNGs, then tracking) median {median_frame_ms(text):.2f} ms; the driver's run "
+                  f"{secs:.1f} s")
+            print(f"  kernel launches: {launches}")
+            for line in slam.timing_report().splitlines():
+                print(f"    {line}")
         missing = [k for k, v in launches.items() if v <= 0]
         if (rc != 0 or len(centres) != DRIVER_FRAMES or len(kfs) < 1 or not ate < ATE_LIMIT_M
                 or missing or not slam.tracker.pipelined):

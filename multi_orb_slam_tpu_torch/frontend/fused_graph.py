@@ -36,7 +36,7 @@ from ..config import SlamConfig
 from ..geometry import camera as cam_mod
 from ..mapping import map_state as ms
 from ..ops import kernels, search
-from ..utils import graphs
+from ..utils import graphs, metrics
 from . import frame as frame_mod
 from . import tracking
 
@@ -135,7 +135,8 @@ class FusedStep:
                                           pin_memory=True)
                 self._stage_events = [torch.cuda.Event() for _ in range(2)]
             slot = self._stage_pos % 2
-            self._stage_events[slot].synchronize()
+            with metrics.wait("image_staging", self._stage_events[slot]):
+                self._stage_events[slot].synchronize()
             self._stage[slot, i].copy_(x)
             buf.copy_(self._stage[slot, i], non_blocking=True)
             if i == 1:
@@ -185,7 +186,7 @@ class FusedStep:
         else:
             if self.graph is None:
                 self.capture()
-            with graphs.no_host_sync(self.device):
+            with graphs.no_host_sync(self.device), metrics.span("graph/replay", self.device):
                 self.graph.replay()
             kernels.add_launches(self.graph_launches)
             self.n_replays += 1

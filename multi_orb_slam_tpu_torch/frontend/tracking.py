@@ -44,7 +44,7 @@ from ..geometry import se3
 from ..mapping import map_state as ms
 from ..ops import hamming, search
 from ..optim import pose_opt
-from ..utils import graphs
+from ..utils import graphs, metrics
 from . import frame as frame_mod
 
 
@@ -714,16 +714,19 @@ class Tracker:
 
     def process(self, grays, depths, timestamp: float | None = None):
         """Track one rig frame: grays, depths [C, H, W] (numpy or tensors)."""
-        if (self.pipelined and self.fuse_extraction
-                and self.state == TrackState.OK):
-            self._drain_pending(keep=self.pipeline_depth - 1)
-            if self.state == TrackState.OK:  # resolution may flip to LOST
-                self._ts = timestamp if timestamp is not None else self.frame_id / 30.0
-                return self._process_ok_fused_images(grays, depths)
-        grays = torch.as_tensor(grays, dtype=torch.float32, device=self.device)
-        depths = torch.as_tensor(depths, dtype=torch.float32, device=self.device)
-        fr = frame_mod.build_frame(grays, depths, self.calib, self.cfg.orb)
-        return self.process_frame(fr, timestamp)
+        with metrics.span("track/process", self.device):
+            if (self.pipelined and self.fuse_extraction
+                    and self.state == TrackState.OK):
+                self._drain_pending(keep=self.pipeline_depth - 1)
+                if self.state == TrackState.OK:  # resolution may flip to LOST
+                    self._ts = timestamp if timestamp is not None else self.frame_id / 30.0
+                    with metrics.span("track/step", self.device):
+                        return self._process_ok_fused_images(grays, depths)
+            grays = metrics.upload(grays, self.device, torch.float32)
+            depths = metrics.upload(depths, self.device, torch.float32)
+            with metrics.span("track/extract", self.device):
+                fr = frame_mod.build_frame(grays, depths, self.calib, self.cfg.orb)
+            return self.process_frame(fr, timestamp)
 
     def _scalars_to_host(self, scalars: torch.Tensor):
         """Start the copy of a frame's status scalars to the host: on CUDA a
@@ -759,7 +762,8 @@ class Tracker:
             return
         pending = self._pending.pop(0)
         if pending["event"] is not None:
-            pending["event"].synchronize()
+            with metrics.wait("pipeline_scalars", pending["event"]):
+                pending["event"].synchronize()
         ok, n_inl, inserted, kf_slot, _n_kf, _nct, _ncu, _nm = pending["scalars"].tolist()
         fid = pending["frame_id"]
         traj_idx = pending["traj_idx"]
@@ -795,16 +799,19 @@ class Tracker:
             self._tstate_dirty = False
         else:
             tstate = self._tstate_dev
-        fs.load(state=self.map, prev=self.prev_frame, prev_Tcw=self.prev_Tcw,
-                prev_mp=self.prev_mp, velocity=self.velocity, tstate=tstate,
-                local_pts=self._ensure_local_pts(), frame_id=self.frame_id)
-        fs.tstate[2].fill_(1 if self.only_tracking else 0)
-        fs.put_images(grays, depths)
-        fs.run()
-        with graphs.no_host_sync(self.device):
-            self.Tcw = fs.prev_Tcw.clone()
-            self._record(fs.ref_slot.clone(), fs.ref_pose.clone(), fs.ref_fid.clone())
-            self._push_pending(fs.scalars)
+        local_pts = self._ensure_local_pts()
+        with metrics.span("graph/FusedStep"):
+            with metrics.span("graph/load"):
+                fs.load(state=self.map, prev=self.prev_frame, prev_Tcw=self.prev_Tcw,
+                        prev_mp=self.prev_mp, velocity=self.velocity, tstate=tstate,
+                        local_pts=local_pts, frame_id=self.frame_id)
+                fs.tstate[2].fill_(1 if self.only_tracking else 0)
+                fs.put_images(grays, depths)
+            fs.run()
+            with graphs.no_host_sync(self.device), metrics.span("graph/clone"):
+                self.Tcw = fs.prev_Tcw.clone()
+                self._record(fs.ref_slot.clone(), fs.ref_pose.clone(), fs.ref_fid.clone())
+                self._push_pending(fs.scalars)
         self.map, self.prev_frame, self.prev_mp = fs.state, fs.prev, fs.prev_mp
         self.prev_Tcw, self.velocity, self._tstate_dev = fs.prev_Tcw, fs.velocity, fs.tstate
         self._local_pts = fs.local_pts
@@ -836,16 +843,17 @@ class Tracker:
             self._resolve_pending()
         self._ts = timestamp if timestamp is not None else self.frame_id / 30.0
         if self.state == TrackState.NOT_INITIALIZED:
-            n_depth = int(((fr.depth > 0) & fr.valid).sum())
+            n_depth = int(metrics.host("depth_count", ((fr.depth > 0) & fr.valid).sum()))
             if n_depth >= min(500, cfg.orb.n_features // 2):
-                self.map, self.Tcw, frame_mp = initialize_map(
-                    self.map, fr, self.calib, cfg, self.frame_id)
+                with metrics.span("track/initialize", self.device):
+                    self.map, self.Tcw, frame_mp = initialize_map(
+                        self.map, fr, self.calib, cfg, self.frame_id)
                 self.state = TrackState.OK
                 self.prev_frame, self.prev_mp = fr, frame_mp
                 self.prev_Tcw = self.Tcw
                 self.last_kf_frame = self.frame_id
                 self.last_kf_slot = 0
-                self.ref_kf_tracked = int((frame_mp >= 0).sum())
+                self.ref_kf_tracked = int(metrics.host("initial_points", (frame_mp >= 0).sum()))
                 self._tstate_dirty = True
             self._record()
             self.frame_id += 1
@@ -865,25 +873,34 @@ class Tracker:
                     self.last_n_inliers = n
             if not relocalized:
                 can_reloc = self.reloc_cb is not None and self.reloc_ready_fn()
-                if int(self.map.n_kf) <= 5 and not self.only_tracking and not can_reloc:
+                if int(metrics.host("n_kf", self.map.n_kf)) <= 5 and not self.only_tracking and not can_reloc:
                     self.reset()
                     return self.process_frame(fr, timestamp)
             self._record()
             self.frame_id += 1
             return self.state
 
-        if self.pipelined:
-            return self._process_ok_fused(fr)
+        with metrics.span("track/step", self.device):
+            if self.pipelined:
+                return self._process_ok_fused(fr)
+            return self._process_ok_stepwise(fr)
 
+    def _process_ok_stepwise(self, fr: frame_mod.FrameData):
+        """An OK frame on the reference's stepwise route, with its host
+        reads of the inlier counts between the stages."""
+        cfg = self.cfg
+        dev = self.device
         # --- motion-model tracking (or ref-KF fallback) ---
-        Tcw, frame_mp, n_match, n_inl, n_map_inl = track_motion_model(
-            self.map, self.prev_frame, self.prev_Tcw, self.prev_mp,
-            self.velocity, fr, self.calib, cfg)
-        n_inl, n_map_inl = torch.stack([n_inl, n_map_inl]).tolist()
+        with metrics.span("track/motion_model", dev):
+            Tcw, frame_mp, n_match, n_inl, n_map_inl = track_motion_model(
+                self.map, self.prev_frame, self.prev_Tcw, self.prev_mp,
+                self.velocity, fr, self.calib, cfg)
+        n_inl, n_map_inl = metrics.host("motion_model_counts", torch.stack([n_inl, n_map_inl])).tolist()
         if n_inl < cfg.min_matches_motion or n_map_inl < 10:
-            Tcw, frame_mp, n_match, n_inl = track_reference_kf(
-                self.map, self.last_kf_slot, self.prev_Tcw, fr, self.calib, cfg)
-            n_inl = int(n_inl)
+            with metrics.span("track/reference_kf", dev):
+                Tcw, frame_mp, n_match, n_inl = track_reference_kf(
+                    self.map, self.last_kf_slot, self.prev_Tcw, fr, self.calib, cfg)
+            n_inl = int(metrics.host("reference_kf_count", n_inl))
         if n_inl < cfg.min_matches_motion:
             self.state = TrackState.LOST
             self._record()
@@ -891,11 +908,12 @@ class Tracker:
             return self.state
 
         # --- local map tracking ---
-        (self.map, Tcw, frame_mp, n_inl, n_close_tracked,
-         n_close_untracked) = track_local_map(
-            self.map, Tcw, fr, frame_mp, self._ensure_local_pts(), self.calib, cfg)
-        n_inl, n_close_tracked, n_close_untracked = torch.stack(
-            [n_inl, n_close_tracked, n_close_untracked]).tolist()
+        with metrics.span("track/local_map", dev):
+            (self.map, Tcw, frame_mp, n_inl, n_close_tracked,
+             n_close_untracked) = track_local_map(
+                self.map, Tcw, fr, frame_mp, self._ensure_local_pts(), self.calib, cfg)
+        n_inl, n_close_tracked, n_close_untracked = metrics.host(
+            "local_map_counts", torch.stack([n_inl, n_close_tracked, n_close_untracked])).tolist()
         if n_inl < cfg.min_inliers_track:
             self.state = TrackState.LOST
             self._record()
@@ -918,11 +936,12 @@ class Tracker:
                    and (since_kf >= cfg.max_frames_kf
                         or (since_kf >= cfg.min_frames_kf
                             and (weak_tracking or need_close))))
-        if need_kf and int(self.map.n_kf) < cfg.max_kf - 1:
-            self.map, kf_mp = insert_keyframe_jit(
-                self.map, fr, Tcw, frame_mp, self.calib, cfg, self.frame_id)
+        if need_kf and int(metrics.host("n_kf", self.map.n_kf)) < cfg.max_kf - 1:
+            with metrics.span("track/insert_keyframe", dev):
+                self.map, kf_mp = insert_keyframe_jit(
+                    self.map, fr, Tcw, frame_mp, self.calib, cfg, self.frame_id)
             self.last_kf_frame = self.frame_id
-            self.last_kf_slot = int(_newest_kf(self.map))
+            self.last_kf_slot = int(metrics.host("newest_kf", _newest_kf(self.map)))
             self._tstate_dirty = True
             frame_mp = kf_mp
             self.ref_kf_tracked = n_inl

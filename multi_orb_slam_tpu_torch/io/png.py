@@ -28,6 +28,9 @@ another format such as JPEG, all of which cv2 reads) raises
 `UnsupportedImage`, so that a caller who skips damaged frames never skips
 these without a word.
 
+`read_png` and `read_gray` are each an `io/decode` span of the port's tracer
+(`utils/metrics.py`), so that a profile names the host time spent decoding.
+
 `write_png` writes 8- and 16-bit grey images with a chosen filter type (one
 for every row, or one per row), so the tests can produce every filter.
 """
@@ -38,6 +41,8 @@ import struct
 import zlib
 
 import numpy as np
+
+from ..utils import metrics
 
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
 NONE, SUB, UP, AVERAGE, PAETH = range(5)
@@ -156,6 +161,11 @@ def _unfilter(raw: np.ndarray, height: int, stride: int, bpp: int) -> np.ndarray
 def read_png(path: str) -> np.ndarray:
     """The stored samples of a PNG file: [H, W] or [H, W, channels],
     uint8 or uint16 (`cv2.IMREAD_UNCHANGED` for a grey image)."""
+    with metrics.span("io/decode"):
+        return _read_png(path)
+
+
+def _read_png(path: str) -> np.ndarray:
     with open(path, "rb") as f:
         data = f.read()
     header, idat = None, []
@@ -201,7 +211,8 @@ def to_gray(px: np.ndarray) -> np.ndarray:
 
 def read_gray(path: str) -> np.ndarray:
     """`cv2.imread(path, cv2.IMREAD_GRAYSCALE)`: [H, W] uint8."""
-    return to_gray(read_png(path))
+    with metrics.span("io/decode"):
+        return to_gray(_read_png(path))
 
 
 def _filter_rows(px: np.ndarray, types: np.ndarray, bpp: int) -> np.ndarray:

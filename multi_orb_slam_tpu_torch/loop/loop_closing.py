@@ -58,7 +58,7 @@ from ..mapping import fusion, map_state as ms
 from ..ops import hamming, kernels
 from ..optim import global_ba, pose_graph, sim3_opt
 from ..placerec import database as db_mod, vocabulary as vocab_mod
-from ..utils import graphs
+from ..utils import graphs, metrics
 from . import sim3_solver
 
 MIN_MATCHES_BOW = 15      # LoopClosing.cc:372 (SearchByBoW gate)
@@ -300,20 +300,21 @@ class LoopCloser:
     def _ensure_vocab(self, state: ms.MapState, kf_slot: int) -> bool:
         if self.voc is not None:
             return True
-        desc = state.kf_desc[kf_slot][0].cpu().numpy()
-        valid = state.kf_feat_valid[kf_slot][0].cpu().numpy()
-        self._train_descs.append(desc[valid])
-        total = sum(len(d) for d in self._train_descs)
-        if total < self.vocab_min_descs:
-            self._pending_bow.append(kf_slot)
-            return False
-        train = np.concatenate(self._train_descs)
-        t0 = time.perf_counter()
-        self.voc = vocab_mod.build_vocabulary(
-            train, k=self.vocab_k, depth=self.vocab_depth, device=self.device)
-        self.vocab_train_seconds = time.perf_counter() - t0
-        self.db = self._empty_db()
-        return True
+        with metrics.span("loop/vocabulary", self.device):
+            desc = metrics.host("loop_descriptors", state.kf_desc[kf_slot][0])
+            valid = metrics.host("loop_descriptors", state.kf_feat_valid[kf_slot][0])
+            self._train_descs.append(desc[valid])
+            total = sum(len(d) for d in self._train_descs)
+            if total < self.vocab_min_descs:
+                self._pending_bow.append(kf_slot)
+                return False
+            train = np.concatenate(self._train_descs)
+            t0 = time.perf_counter()
+            self.voc = vocab_mod.build_vocabulary(
+                train, k=self.vocab_k, depth=self.vocab_depth, device=self.device)
+            self.vocab_train_seconds = time.perf_counter() - t0
+            self.db = self._empty_db()
+            return True
 
     # ------------------------------------------------------------------
 
@@ -325,24 +326,28 @@ class LoopCloser:
         if not self._ensure_vocab(state, kf_slot):
             return state
         # index any keyframes that arrived before the vocabulary was ready
-        kf_valid = state.kf_valid.cpu().numpy() if self._pending_bow else None
+        kf_valid = metrics.host("loop_kf_valid", state.kf_valid) if self._pending_bow else None
         for k in self._pending_bow:
             if bool(kf_valid[k]):
                 self.db = db_mod.add_keyframe(self.db, self.voc, state, k)
         self._pending_bow = []
 
-        fid, n_kf = (int(v) for v in (state.kf_frame_id[kf_slot], state.n_kf))
+        fid = int(metrics.host("loop_frame_id", state.kf_frame_id[kf_slot]))
+        n_kf = int(metrics.host("loop_n_kf", state.n_kf))
         candidates = []
         if fid >= self.last_loop_kf + DETECT_GAP and n_kf > 5:
-            candidates = self._detect(state, kf_slot)
+            with metrics.span("loop/detect", self.device):
+                candidates = self._detect(state, kf_slot)
         self.db = db_mod.add_keyframe(self.db, self.voc, state, kf_slot)
         if not candidates:
             return state
-        result = self._compute_sim3(state, kf_slot, candidates)
+        with metrics.span("loop/sim3", self.device):
+            result = self._compute_sim3(state, kf_slot, candidates)
         if result is None:
             return state
         loop_kf, g_ab, _ = result
-        state = self._correct_loop(state, kf_slot, loop_kf, g_ab)
+        with metrics.span("loop/correct", self.device):
+            state = self._correct_loop(state, kf_slot, loop_kf, g_ab)
         self.last_loop_kf = fid
         self.n_loops_closed += 1
         return state
@@ -352,17 +357,17 @@ class LoopCloser:
     def _detect(self, state: ms.MapState, kf_slot: int) -> list:
         """DetectLoop with temporal consistency groups."""
         # minScore = lowest BoW similarity to a covisibility neighbor
-        W = ms.covisibility(state, cam0_only=True).cpu().numpy()
+        W = metrics.host("loop_covisibility", ms.covisibility(state, cam0_only=True))
         neighbors = np.nonzero(W[kf_slot] >= 15.0)[0]
         q_desc = state.kf_desc[kf_slot][0]
         q_valid = state.kf_feat_valid[kf_slot][0]
         q_ids, q_vals = vocab_mod.bow_sparse(
             self.voc, q_desc, q_valid, budget=self.db.ids_cam0.shape[1])
-        scores = db_mod.score_query_cam0(self.db, q_ids, q_vals).cpu().numpy()
-        has = self.db.has_bow.cpu().numpy()
+        scores = metrics.host("loop_scores", db_mod.score_query_cam0(self.db, q_ids, q_vals))
+        has = metrics.host("loop_has_bow", self.db.has_bow)
         nb = [n for n in neighbors if has[n]]
         min_score = float(scores[nb].min()) if nb else 0.3
-        max_fid = int(state.kf_frame_id[kf_slot]) - MIN_LOOP_AGE
+        max_fid = int(metrics.host("loop_frame_id", state.kf_frame_id[kf_slot])) - MIN_LOOP_AGE
         cands = db_mod.detect_loop_candidates(
             self.db, state, kf_slot, max(min_score, 0.0),
             q_ids=q_ids, q_vals=q_vals, max_frame_id=max_fid)
@@ -420,7 +425,7 @@ class LoopCloser:
         Returns (kf_b, g_ab [8], total matches) or None."""
         F = state.kf_desc.shape[2]
         dev = state.mp_pos.device
-        fids = state.kf_frame_id.cpu().numpy()
+        fids = metrics.host("loop_frame_ids", state.kf_frame_id)
         fid_a = int(fids[kf_a])
         for kf_b in candidates:
             if int(fids[kf_b]) > fid_a - MIN_LOOP_AGE:
@@ -437,12 +442,13 @@ class LoopCloser:
             n_matches, bi, ok = word_match_stage(state.kf_desc, state.kf_mp,
                                                  state.kf_feat_valid, self.voc, kf_a, kf_b)
             _count("word_match", before)
-            rec["bow"] = n_matches = int(n_matches)
+            rec["bow"] = n_matches = int(metrics.host("loop_bow_matches", n_matches))
             if n_matches < MIN_MATCHES_BOW:
                 continue
             # matched landmark pairs in each RIG frame, with the observing
             # camera of each side (loop matches can land in any camera)
-            ia = torch.nonzero(ok)[:, 0][:SIM3_CAP]
+            with metrics.wait("loop_matched_pairs"):
+                ia = torch.nonzero(ok)[:, 0][:SIM3_CAP]
             ib = bi[ia].long()
             n = ia.shape[0]
             pts_a = se3.transform_points(state.kf_Tcw[kf_a], state.mp_pos[mp_a_flat[ia].long()])
@@ -459,13 +465,14 @@ class LoopCloser:
             g_ab, inl, n_inl = sim3_solver.solve_sim3(
                 self.triplet_source(valid, kf_a, kf_b), pts_a, pts_b, cam_a, cam_b,
                 valid, self.calib.T_rc, self.calib.K)
-            rec["ransac"] = n_inl = int(n_inl)
+            rec["ransac"] = n_inl = int(metrics.host("loop_ransac_inliers", n_inl))
             if n_inl < MIN_INLIERS_SIM3:
                 continue
             # guided match-producing search (SearchBySim3) + gated Sim3 LM
             # (OptimizeSim3): new correspondences feed the refinement,
             # acceptance needs >= 20 LM inliers (LoopClosing.cc:455-461)
-            g_ab, n_lm = self._refine_sim3(state, kf_a, kf_b, g_ab, ia, ib, inl[:n])
+            with metrics.span("loop/sim3_refine", dev):
+                g_ab, n_lm = self._refine_sim3(state, kf_a, kf_b, g_ab, ia, ib, inl[:n])
             rec["lm"] = n_lm
             if n_lm < MIN_INLIERS_SIM3:
                 continue
@@ -498,8 +505,9 @@ class LoopCloser:
         # pairs, which may live in any camera, take precedence
         pair_of_a = torch.full((C * F,), -1, dtype=torch.int64, device=dev)
         pair_of_a[:F] = guided.long()
-        pair_of_a[ia[ransac_inl]] = ib[ransac_inl]
-        ja = torch.nonzero(pair_of_a >= 0)[:, 0][:REFINE_CAP]
+        pair_of_a[ia] = torch.where(ransac_inl, ib, pair_of_a[ia])    # ia holds no index twice
+        with metrics.wait("loop_refine_pairs"):
+            ja = torch.nonzero(pair_of_a >= 0)[:, 0][:REFINE_CAP]
         jb = pair_of_a[ja]
         n = ja.shape[0]
 
@@ -515,8 +523,8 @@ class LoopCloser:
             out[:n] = x
             return out
 
-        sf2 = torch.tensor([cfg.scale_factor ** (2.0 * lvl) for lvl in range(cfg.n_levels)],
-                           dtype=torch.float32, device=dev)
+        sf2 = metrics.upload([cfg.scale_factor ** (2.0 * lvl) for lvl in range(cfg.n_levels)],
+                             dev, torch.float32)
         X_a, uv_a, is2_a, cam_a = (pad(x) for x in rows(kf_a, ja))
         X_b, uv_b, is2_b, cam_b = (pad(x) for x in rows(kf_b, jb))
         obs = sim3_opt.Sim3Obs(
@@ -525,14 +533,14 @@ class LoopCloser:
             cam_a=cam_a, cam_b=cam_b)
         g_ref, _, n_inl = sim3_opt.optimize_sim3(
             g_ab, obs, self.calib.K, T_rc=self.calib.T_rc, fix_scale=True)
-        return g_ref, int(n_inl)
+        return g_ref, int(metrics.host("loop_refine_inliers", n_inl))
 
     def _guided_matches(self, state, kf_a: int, kf_b: int, g_ab) -> int:
         """`guided_count_stage`, read back."""
         before = kernels.LAUNCHES["window_match"]
         n = guided_count_stage(state, kf_a, kf_b, g_ab, self.calib, self.cfg)
         _count("guided_matches", before)
-        return int(n)
+        return int(metrics.host("loop_guided_matches", n))
 
     # ------------------------------------------------------------------
 
@@ -549,12 +557,12 @@ class LoopCloser:
         S_aw_corr = sim3.compose(g_ab, g_old[kf_b])
 
         # propagate to the covisibility neighborhood of kf_a (CorrectedSim3)
-        W = ms.covisibility(state, cam0_only=True).cpu().numpy()
+        W = metrics.host("loop_covisibility", ms.covisibility(state, cam0_only=True))
         neigh = np.nonzero(W[kf_a] >= 15.0)[0].tolist()
         corrected_slots = [kf_a] + [n for n in neigh if n != kf_a]
         corr_mask = np.zeros(K, bool)
         corr_mask[corrected_slots] = True
-        idx = torch.tensor(corrected_slots, dtype=torch.int64, device=dev)
+        idx = metrics.upload(corrected_slots, dev, torch.int64)
         # S_kw_corr = S_k,a * S_aw_corr with S_k,a = S_kw * S_aw^-1
         S_ka = sim3.compose(g_old[idx], sim3.inverse(g_old[kf_a]))
         g_corr = g_old.clone()
@@ -581,11 +589,13 @@ class LoopCloser:
 
         # essential-graph optimization
         self.loop_pairs.append((kf_a, kf_b))
-        ei, ej, meas, ok = pose_graph.build_essential_edges(
-            W, state.kf_valid.cpu().numpy(), state.kf_frame_id.cpu().numpy(),
-            g_old, (g_corr, corr_mask), self.loop_pairs)
-        kf_free = state.kf_valid & (torch.arange(K, device=dev) != kf_b)
-        g_opt = pose_graph.optimize_essential_graph(g_corr, kf_free, ei, ej, meas, ok)
+        with metrics.span("loop/pose_graph", dev):
+            ei, ej, meas, ok = pose_graph.build_essential_edges(
+                W, metrics.host("loop_kf_valid", state.kf_valid),
+                metrics.host("loop_frame_ids", state.kf_frame_id),
+                g_old, (g_corr, corr_mask), self.loop_pairs)
+            kf_free = state.kf_valid & (torch.arange(K, device=dev) != kf_b)
+            g_opt = pose_graph.optimize_essential_graph(g_corr, kf_free, ei, ej, meas, ok)
 
         # apply: poses from Sim3 ([R | t/s]); points corrected through their
         # first (creating) keyframe's old->new transform
@@ -604,8 +614,9 @@ class LoopCloser:
         # ignores an outdated run (LoopClosing.cc:897-907).
         if self.run_gba:
             self._gba_pending = None
-            Tcw_gba, pos_gba = global_ba.dispatch_global_ba(
-                state, self.calib, self.cfg, n_outer=9)
+            with metrics.span("loop/gba_dispatch", dev):
+                Tcw_gba, pos_gba = global_ba.dispatch_global_ba(
+                    state, self.calib, self.cfg, n_outer=9)
             self._gba_pending = (Tcw_gba, pos_gba, state.kf_valid, state.kf_frame_id,
                                  state.mp_valid, state.mp_first_frame)
         return state
@@ -623,4 +634,5 @@ class LoopCloser:
             return state
         pending, self._gba_pending = self._gba_pending, None
         self.n_gba_merged += 1
-        return merge_gba(state, *pending)
+        with metrics.span("loop/gba_merge", self.device):
+            return merge_gba(state, *pending)

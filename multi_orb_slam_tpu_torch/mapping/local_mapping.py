@@ -45,7 +45,7 @@ from ..frontend.tracking import _device_scalar, select, update_point_geometry
 from ..geometry import camera as cam_mod
 from ..ops import hamming
 from ..optim import local_ba
-from ..utils import graphs
+from ..utils import graphs, metrics
 from . import fusion, triangulation
 from . import map_state as ms
 
@@ -56,9 +56,11 @@ STATS = graphs.DeviceCounters()
 BA_WINDOWS = graphs.DeviceCounters()
 
 
-def _stage(name: str):
-    """Named range around one stage (visible to `torch.profiler`)."""
-    return torch.profiler.record_function(f"mapping/{name}")
+def _stage(name: str, state: ms.MapState):
+    """The tracer's span of one stage, `mapping/<name>`, with device events
+    on `state`'s device (inside a graph's capture it records nothing: a
+    replay of `_mapping_stage_fused` is one `graph/replay`)."""
+    return metrics.span(f"mapping/{name}", state.mp_pos.device)
 
 
 def _shared_obs(state: ms.MapState, mask: torch.Tensor) -> torch.Tensor:
@@ -200,11 +202,11 @@ def run_local_ba(state: ms.MapState, center_kf, calib: cam_mod.CameraParams,
                  cfg: SlamConfig, n_free: int = 12, n_fixed: int = 12,
                  phases: tuple = ((5, True), (8, False))) -> ms.MapState:
     """Full local BA pass around a keyframe (build -> solve -> apply)."""
-    with _stage("build_problem"):
+    with _stage("build_problem", state):
         prob = build_local_problem(state, center_kf, cfg, n_free, n_fixed)
-    with _stage("solve"):
+    with _stage("solve", state):
         kf_Tcw, mp_pos, inlier = solve_ba_jit(prob, calib.T_rc, calib.K, calib.bf, phases)
-    with _stage("apply"):
+    with _stage("apply", state):
         return apply_ba_result(state, prob, kf_Tcw, mp_pos, inlier, cfg)
 
 
@@ -229,7 +231,8 @@ def _window(state: ms.MapState, kf_slot, cfg: SlamConfig, covis_hint):
     LM schedule (the count is read back here when no hint is given)."""
     if not cfg.ba_adaptive:
         return cfg.ba_free_kfs, cfg.ba_fixed_kfs, ((5, True), (8, False))
-    n_cov = covis_hint if covis_hint is not None else int(covis_kf_count(state, kf_slot))
+    n_cov = (covis_hint if covis_hint is not None
+             else int(metrics.host("covis_count", covis_kf_count(state, kf_slot))))
     for nf in _BA_WINDOW_BUCKETS:
         if nf >= n_cov + 1:
             break
@@ -266,22 +269,22 @@ def run_mapping_stage(state: ms.MapState, kf_slot, frame_id,
             n_free, n_fixed, phases)
     STATS.add("stages", 1, state.mp_pos.device)
     if do_cull:
-        with _stage("cull_points"):
+        with _stage("cull_points", state):
             state = cull_map_points(state, frame_id, cfg)
     if do_triangulate:
-        with _stage("triangulate"):
+        with _stage("triangulate", state):
             state, _ = triangulation.triangulate_new_points(state, kf_slot, calib, cfg)
     if do_fuse:
-        with _stage("fuse"):
+        with _stage("fuse", state):
             state, _ = fusion.fuse_neighbors(state, kf_slot, calib, cfg)
-    if do_ba and int(state.n_kf) > 2:
+    if do_ba and int(metrics.host("n_kf", state.n_kf)) > 2:
         BA_WINDOWS.add(n_free, 1, state.mp_pos.device)
         state = run_local_ba(state, kf_slot, calib, cfg,
                              n_free=n_free, n_fixed=n_fixed, phases=phases)
     if do_cull:
-        with _stage("cull_keyframes"):
+        with _stage("cull_keyframes", state):
             state = cull_keyframes(state, kf_slot, cfg)
-    with _stage("geometry"):
+    with _stage("geometry", state):
         return update_point_geometry(state, cfg)
 
 
@@ -296,27 +299,27 @@ def _mapping_stage_fused(state: ms.MapState, kf_slot: torch.Tensor, frame_id: to
     point store in use) are computed on every keyframe and selected."""
     M = state.mp_pos.shape[0]
     STATS.add("stages", 1, state.mp_pos.device)
-    with _stage("cull_points"):
+    with _stage("cull_points", state):
         state = cull_map_points(state, frame_id, cfg)
-    with _stage("triangulate"):
+    with _stage("triangulate", state):
         state, _ = triangulation.triangulate_new_points(state, kf_slot, calib, cfg)
-    with _stage("fuse"):
+    with _stage("fuse", state):
         state, _ = fusion.fuse_neighbors(state, kf_slot, calib, cfg)
     do_ba = state.n_kf > 2
     BA_WINDOWS.add(n_free, do_ba)
-    with _stage("build_problem"):
+    with _stage("build_problem", state):
         prob = build_local_problem(state, kf_slot, cfg, n_free, n_fixed)
-    with _stage("solve"):
+    with _stage("solve", state):
         sol = local_ba.solve_ba(prob, calib.T_rc, calib.K, calib.bf, phases=phases, run=do_ba)
-    with _stage("apply"):
+    with _stage("apply", state):
         state = select(do_ba, apply_ba_result(state, prob, *sol, cfg), state)
-    with _stage("cull_keyframes"):
+    with _stage("cull_keyframes", state):
         state = cull_keyframes(state, kf_slot, cfg)
-    with _stage("relieve_capacity"):
+    with _stage("relieve_capacity", state):
         # neither local BA nor keyframe culling changes n_mp
         state = select(state.n_mp > int(0.90 * M),
                        ms.relieve_capacity(state, target_free=max(M // 10, 64)), state)
-    with _stage("geometry"):
+    with _stage("geometry", state):
         return update_point_geometry(state, cfg)
 
 

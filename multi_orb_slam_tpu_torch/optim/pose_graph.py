@@ -31,7 +31,7 @@ import numpy as np
 import torch
 
 from ..geometry import sim3
-from ..utils import graphs
+from ..utils import graphs, metrics
 from .segments import Segments
 
 
@@ -167,11 +167,10 @@ def build_essential_edges(
         pose = g_old
     else:
         g_corr, corr_mask = g_corrected
-        mask = torch.from_numpy(np.asarray(corr_mask, bool)).to(dev)
+        mask = metrics.upload(np.asarray(corr_mask, bool), dev)
         pose = torch.where(mask[:, None], g_corr, g_old)
-    ei_t = torch.from_numpy(ei).to(dev)
-    ej_t = torch.from_numpy(ej).to(dev)
+    ei_t, ej_t = metrics.upload(ei, dev), metrics.upload(ej, dev)
     meas = sim3.compose(pose[ej_t.long()], sim3.inverse(pose[ei_t.long()]))
-    ok_t = torch.from_numpy(ok).to(dev)
+    ok_t = metrics.upload(ok, dev)
     meas = torch.where(ok_t[:, None], meas, sim3.identity(g_old.dtype, dev))
     return ei_t, ej_t, meas, ok_t

@@ -27,6 +27,7 @@ import torch
 
 from .. import resolve_device
 from ..mapping import map_state as ms
+from ..utils import metrics
 from . import vocabulary as vocab_mod
 
 
@@ -70,12 +71,14 @@ def add_keyframe(
     db.vals_cam0[k] = v0
     db.ids_all[k] = ia
     db.vals_all[k] = va
-    db.has_bow[k] = True
+    with metrics.wait("db_has_bow_write"):     # a copy from the host
+        db.has_bow[k] = True
     return db
 
 
 def remove_keyframe(db: KeyFrameDB, kf_slot) -> KeyFrameDB:
-    db.has_bow[int(kf_slot)] = False
+    with metrics.wait("db_has_bow_write"):     # a copy from the host
+        db.has_bow[int(kf_slot)] = False
     return db
 
 
@@ -114,16 +117,16 @@ def detect_loop_candidates(
         # add_keyframe (the reference's order, LoopClosing.cc:277) must pass
         # the query BoW explicitly or every score is silently zero
         q_ids, q_vals = db.ids_cam0[query_kf], db.vals_cam0[query_kf]
-    l1 = score_query_cam0(db, q_ids, q_vals).cpu().numpy()
+    l1 = metrics.host("db_scores", score_query_cam0(db, q_ids, q_vals))
     K = l1.shape[0]
-    has = (db.has_bow & state.kf_valid).cpu().numpy().copy()
+    has = metrics.host("db_has_bow", db.has_bow & state.kf_valid).copy()
     has[query_kf] = False
     # exclude covisibility-connected keyframes (weight >= 15)
-    W = ms.covisibility(state, cam0_only=True).cpu().numpy()
+    W = metrics.host("db_covisibility", ms.covisibility(state, cam0_only=True))
     connected = W[query_kf] >= 15.0
     cand_mask = has & ~connected
     if max_frame_id is not None:
-        cand_mask &= state.kf_frame_id.cpu().numpy() <= max_frame_id
+        cand_mask &= metrics.host("db_frame_ids", state.kf_frame_id) <= max_frame_id
     if not cand_mask.any():
         return []
     l1 = np.where(cand_mask, l1, -1.0)
@@ -165,7 +168,7 @@ def detect_relocalization_candidates(
     q_ids, q_vals = vocab_mod.bow_sparse(
         voc, frame_desc_cam0, frame_valid_cam0,
         budget=db.ids_cam0.shape[1])
-    l1 = torch.where(db.has_bow & state.kf_valid,
-                     score_query_cam0(db, q_ids, q_vals), -1.0).cpu().numpy()
+    l1 = metrics.host("db_scores", torch.where(db.has_bow & state.kf_valid,
+                                               score_query_cam0(db, q_ids, q_vals), -1.0))
     order = np.argsort(-l1)[:n_candidates]
     return [int(k) for k in order if l1[k] > 0]

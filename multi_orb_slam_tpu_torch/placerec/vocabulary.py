@@ -31,6 +31,7 @@ import torch
 
 from .. import resolve_device
 from ..ops import hamming
+from ..utils import metrics
 
 _BIGD = 1 << 20      # distance of a dead beam slot
 _NO_WORD = 1 << 30   # sort key of an invalid feature in `bow_sparse`
@@ -58,7 +59,7 @@ def _as_words(descs) -> np.ndarray:
 def _to_device(a: np.ndarray, device) -> torch.Tensor:
     if a.dtype == np.uint32:
         a = a.view(np.int32)
-    return torch.from_numpy(np.array(a, copy=True)).to(device)
+    return metrics.upload(np.array(a, copy=True), device)
 
 
 def _bit_majority(descs: np.ndarray) -> np.ndarray:
@@ -137,7 +138,7 @@ def build_vocabulary(
     )
     # idf weights from the training corpus (TemplatedVocabulary::setWeights)
     train = _as_words(weight_descs) if weight_descs is not None else descriptors
-    words = transform_words(voc, _to_device(train, device)).cpu().numpy()
+    words = metrics.host("vocab_words", transform_words(voc, _to_device(train, device)))
     n_docs_proxy = max(len(train), 1)
     counts = np.bincount(words, minlength=n_words).astype(np.float32)
     idf = np.log(n_docs_proxy / np.maximum(counts, 1.0) + 1.0)

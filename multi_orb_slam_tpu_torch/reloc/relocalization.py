@@ -36,7 +36,7 @@ from ..mapping import map_state as ms
 from ..ops import hamming, kernels, search
 from ..optim import pose_opt
 from ..placerec import database as db_mod, vocabulary as vocab_mod
-from ..utils import graphs
+from ..utils import graphs, metrics
 from . import pnp
 
 MIN_BOW_MATCHES = 15     # Tracking.cc:2030
@@ -49,14 +49,14 @@ STATS = {"calls": 0, "candidates": 0, "host_reads": 0, "found": 0}
 
 def _read(x: torch.Tensor) -> int:
     STATS["host_reads"] += 1
-    return int(x)
+    return int(metrics.host("reloc_read", x))
 
 
-def _stage(name: str):
-    """Named range around one stage (visible to `torch.profiler`).  Every
-    stage but the top-up search ends in its host read, so a range's host
-    time is the stage's wall time."""
-    return torch.profiler.record_function(f"reloc/{name}")
+def _stage(name: str, device):
+    """The tracer's span of one stage, `reloc/<name>`, with device events.
+    Every stage but the top-up search ends in its host read, so a span's
+    host time is the stage's wall time."""
+    return metrics.span(f"reloc/{name}", device)
 
 
 def match_kf_cam0(kf_desc: torch.Tensor, kf_has_mp: torch.Tensor,
@@ -162,21 +162,21 @@ def relocalize(
     """Try to relocalize the frame. Returns (ok, Tcw, frame_mp, n_inliers)."""
     dev = fr.valid.device
     STATS["calls"] += 1
-    with _stage("candidates"):
+    with _stage("candidates", dev):
         candidates = db_mod.detect_relocalization_candidates(
             db, voc, state, fr.desc[0], fr.valid[0])
         STATS["host_reads"] += 1
     for kf in candidates:
         STATS["candidates"] += 1
         # camera-0 matching against the candidate's map-point features
-        with _stage("dense_match"):
+        with _stage("dense_match", dev):
             n_matches, mp_of_feat, matched, Xw = match_stage(
                 state.kf_desc, state.kf_mp, state.kf_feat_valid, state.mp_valid, state.mp_pos,
                 fr.desc[0], fr.valid[0], int(kf))
             n_matches = _read(n_matches)
         if n_matches < MIN_BOW_MATCHES:
             continue
-        with _stage("pnp"):
+        with _stage("pnp", dev):
             gen = torch.Generator(device=dev)
             gen.manual_seed(int(kf))
             Tcw0, inl, n_inl = pnp.pnp_ransac(gen, fr.xy_und[0], Xw, matched, calib.K[0])
@@ -184,15 +184,15 @@ def relocalize(
         if n_inl < 10:
             continue
         # motion-only BA on the PnP inliers
-        with _stage("pose_ba_1"):
+        with _stage("pose_ba_1", dev):
             frame_mp, obs = pose_ba_inputs(matched, inl, mp_of_feat, state.mp_pos, fr, cfg)
             Tcw, inlier, n = pose_opt.optimize_pose(Tcw0, obs, calib.T_rc, calib.K, calib.bf)
             n = _read(n)
         if n < 10:
             continue
-        with _stage("top_up_search"):
+        with _stage("top_up_search", dev):
             merged, obs = top_up_stage(state, int(kf), frame_mp, inlier, Tcw, fr, calib, cfg)
-        with _stage("pose_ba_2"):
+        with _stage("pose_ba_2", dev):
             Tcw, inlier, n = pose_opt.optimize_pose(Tcw, obs, calib.T_rc, calib.K, calib.bf)
             n = _read(n)
         if n >= MIN_ACCEPT_INLIERS:

@@ -115,12 +115,19 @@ class System:
     # ------------------------------------------------------------------
 
     def _on_keyframe(self, kf_slot: int):
+        with self.metrics.span("system/keyframe", self.device):
+            m = self._keyframe_stages(kf_slot)
+        self.metrics.count("keyframes_inserted")
+        return m
+
+    def _keyframe_stages(self, kf_slot: int):
+        """The mapping stage, then the loop stage, on a new keyframe."""
         # adaptive-window hint: the PREVIOUS keyframe's covisible count,
         # queued below and read here one keyframe later (by which time the
         # device has finished it: no stall of the queue)
-        hint = (int(self._covis_pending)
+        hint = (int(metrics_mod.host("covis_hint", self._covis_pending))
                 if self._covis_pending is not None else None)
-        with self.metrics.span("mapping_stage"):
+        with metrics_mod.span("mapping/stage", self.device):
             m = local_mapping.run_mapping_stage(
                 self.tracker.map, kf_slot, self.tracker.frame_id,
                 self.calib, self.cfg, covis_hint=hint,
@@ -132,7 +139,7 @@ class System:
             # a copy, not a view: the loop stage replaces kf_Tcw, and the
             # correction below is taken against the pose from before it
             pose_mid = m.kf_Tcw[kf_slot].clone()
-            with self.metrics.span("loop_stage"):
+            with metrics_mod.span("loop/stage", self.device):
                 m = self.loop_closer.process_keyframe(m, kf_slot)
             if self.loop_closer.n_loops_closed > n_loops_before:
                 # a loop correction JUMPED the newest keyframe; the live
@@ -143,7 +150,6 @@ class System:
                 # the optimized map through matching every frame.
                 self.tracker.queue_pose_correction(
                     se3.inverse(pose_mid) @ m.kf_Tcw[kf_slot])
-        self.metrics.count("keyframes_inserted")
         return m
 
     def _relocalize(self, fr):
@@ -151,7 +157,7 @@ class System:
         if self.loop_closer is None or self.loop_closer.voc is None:
             return False, None, None, 0
         from .reloc import relocalization
-        with self.metrics.span("relocalize"):
+        with self.metrics.span("system/relocalize", self.device):
             return relocalization.relocalize(
                 self.tracker.map, fr, self.loop_closer.voc,
                 self.loop_closer.db, self.calib, self.cfg)
@@ -170,27 +176,31 @@ class System:
         grayscale float arrays (numpy or tensors); depth in meters
         (DepthMapFactor already applied by the caller).  Returns the rig
         pose Tcw [4, 4] as a numpy array, which waits for the device."""
-        if self._reset_requested:
-            self._do_reset()
-        on_device = self._on_device
-        if self.sensor == Sensor.DUAL_RGBD:
-            if im2 is None or depth2 is None:
-                raise ValueError("a dual-camera system needs im2 and depth2")
-            grays = torch.stack([on_device(im1), on_device(im2)])
-            depths = torch.stack([on_device(depth1), on_device(depth2)])
-        else:
-            grays = on_device(im1)[None]
-            depths = on_device(depth1)[None]
-        with self.metrics.span("track_frame"):
+        with self.metrics.span("system/track_rgbd", self.device, frame=self.tracker.frame_id):
+            if self._reset_requested:
+                self._do_reset()
+            on_device = self._on_device
+            if self.sensor == Sensor.DUAL_RGBD:
+                if im2 is None or depth2 is None:
+                    raise ValueError("a dual-camera system needs im2 and depth2")
+                grays = torch.stack([on_device(im1), on_device(im2)])
+                depths = torch.stack([on_device(depth1), on_device(depth2)])
+            else:
+                grays = on_device(im1)[None]
+                depths = on_device(depth1)[None]
             self.tracker.process(grays, depths, timestamp)
-        return self.tracker.Tcw.cpu().numpy()
+            return metrics_mod.host("pose_readback", self.tracker.Tcw)
 
     def _on_device(self, a) -> torch.Tensor:
-        return torch.as_tensor(a, dtype=torch.float32, device=self.device)
+        return metrics_mod.upload(a, self.device, torch.float32)
 
     def timing_report(self) -> str:
-        """Per-stage timing summary (the reference's chrono prints,
-        structured)."""
+        """Per-stage summary of this system's spans (the reference's chrono
+        prints, structured): host ms, and device ms where a span carries
+        events.  Spans are recorded only while tracing is on
+        (`utils.metrics.enable()`, or a recording `torch.profiler`)."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)   # every span's end event reached
         return self.metrics.report()
 
     def track_stereo(self, im_left, im_right, timestamp: Optional[float] = None):
@@ -199,13 +209,15 @@ class System:
         left<->right ORB matching, then the RGB-D pipeline.  Images are
         grayscale float arrays (numpy or tensors); returns Tcw [4, 4] as a
         numpy array."""
-        if self._reset_requested:
-            self._do_reset()
-        with self.metrics.span("track_frame"):
-            fr = frame_mod.build_frame_stereo(self._on_device(im_left),
-                                              self._on_device(im_right), self.calib, self.cfg.orb)
-            self.tracker.process_frame(fr, timestamp)
-        return self.tracker.Tcw.cpu().numpy()
+        with self.metrics.span("system/track_stereo", self.device, frame=self.tracker.frame_id):
+            if self._reset_requested:
+                self._do_reset()
+            left, right = self._on_device(im_left), self._on_device(im_right)
+            with metrics_mod.span("track/process", self.device):
+                with metrics_mod.span("track/extract", self.device):
+                    fr = frame_mod.build_frame_stereo(left, right, self.calib, self.cfg.orb)
+                self.tracker.process_frame(fr, timestamp)
+            return metrics_mod.host("pose_readback", self.tracker.Tcw)
 
     def activate_localization_mode(self):
         """Track against the frozen map; no new keyframes

@@ -47,6 +47,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from . import metrics
+
 # scalars traced as 0-dim device tensors, and their dtypes
 _SCALARS = {bool: torch.bool, int: torch.int64, float: torch.float32}
 
@@ -162,25 +164,29 @@ def capture(device: torch.device, warmup, body) -> Captured:
     their bodies."""
     from ..ops import _build, kernels
 
-    _build.load()
-    launches0 = dict(kernels.LAUNCHES)
-    cur = torch.cuda.current_stream(device)
-    torch.cuda.synchronize(device)
-    saved = [c.save(device) for c in _COUNTERS]
-    side = torch.cuda.Stream(device)
-    side.wait_stream(cur)
-    t0 = time.perf_counter()
-    with _depth("inline"), torch.cuda.stream(side):
-        warmup()
-    cur.wait_stream(side)
-    torch.cuda.synchronize(device)
-    t1 = time.perf_counter()
-    launches1 = dict(kernels.LAUNCHES)
-    graph = torch.cuda.CUDAGraph()
-    with _depth("inline"), torch.cuda.graph(graph):
-        out = body()
-    torch.cuda.synchronize(device)
-    t2 = time.perf_counter()
+    with metrics.span("graph/capture"):
+        _build.load()
+        launches0 = dict(kernels.LAUNCHES)
+        cur = torch.cuda.current_stream(device)
+        with metrics.wait("capture"):
+            torch.cuda.synchronize(device)
+        saved = [c.save(device) for c in _COUNTERS]
+        side = torch.cuda.Stream(device)
+        side.wait_stream(cur)
+        t0 = time.perf_counter()
+        with _depth("inline"), torch.cuda.stream(side):
+            warmup()
+        cur.wait_stream(side)
+        with metrics.wait("capture"):
+            torch.cuda.synchronize(device)
+        t1 = time.perf_counter()
+        launches1 = dict(kernels.LAUNCHES)
+        graph = torch.cuda.CUDAGraph()
+        with _depth("inline"), torch.cuda.graph(graph):
+            out = body()
+        with metrics.wait("capture"):
+            torch.cuda.synchronize(device)
+        t2 = time.perf_counter()
     launches = {k: v - launches1[k] for k, v in kernels.LAUNCHES.items()}
     kernels.LAUNCHES.update(launches0)
     for c, s in zip(_COUNTERS, saved):
@@ -229,6 +235,7 @@ class Entry:
 
     def __init__(self, fn, bind, device: torch.device, arguments: dict, static):
         self.fn, self.name, self.device = fn, fn.__qualname__, device
+        self.span_name = f"graph/{self.name}"
         self._bind, self.static = bind, static
         self.inputs = {k: v if k in static else _buffer(v, True, device)
                        for k, v in arguments.items()}
@@ -267,15 +274,19 @@ class Entry:
         return self._run(self._bind(args, kwargs))
 
     def _run(self, arguments: dict):
-        self.load(arguments)
-        self.n_calls += 1
-        if self.device.type != "cuda":
-            return clone(self.body())
-        if self.graph is None:
-            self.capture()
-        with no_host_sync(self.device):
-            self.graph.replay()
-            out = clone(self.out)
+        with metrics.span(self.span_name):
+            with metrics.span("graph/load"):
+                self.load(arguments)
+            self.n_calls += 1
+            if self.device.type != "cuda":
+                return clone(self.body())
+            if self.graph is None:
+                self.capture()
+            with no_host_sync(self.device):
+                with metrics.span("graph/replay", self.device):
+                    self.graph.replay()
+                with metrics.span("graph/clone"):
+                    out = clone(self.out)
         from ..ops import kernels
 
         kernels.add_launches(self.graph_launches)

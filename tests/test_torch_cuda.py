@@ -1660,3 +1660,110 @@ def test_cuda_extract_orb_reference_replays_are_the_eager_calls():
 
     kc, kg = keys(cpu), keys(card)
     assert len(kc & kg) >= 0.99 * len(kc) > 100
+
+
+# ---------------------------------------------------------------------------
+# the tracer's device events and host waits
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+def test_cuda_span_device_ms_is_the_profilers_kernel_time():
+    """A span around 12 float32 4096 x 4096 matmuls: its device ms (its two
+    events) within 10% of the kernels' device time the profiler saw."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from multi_orb_slam_tpu_torch.utils import metrics
+
+    a = torch.randn(4096, 4096, device="cuda")
+    b = torch.randn(4096, 4096, device="cuda")
+    for _ in range(3):
+        a @ b
+    torch.cuda.synchronize()
+    metrics.clear()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        with metrics.span("test/matmuls", "cuda"):
+            for _ in range(12):
+                a @ b
+        torch.cuda.synchronize()
+    cpu = torch.autograd.DeviceType.CPU
+    kernel_ms = sum(e.end_ns() - e.start_ns() for e in prof.profiler.kineto_results.events()
+                    if e.device_type() != cpu and not e.is_user_annotation()) / 1e6
+    (s,) = [s for s in metrics.spans() if s.name == "test/matmuls"]
+    metrics.clear()
+    print(f"span device {s.device_ms():.3f} ms, host {s.host_ms:.3f} ms; kernels {kernel_ms:.3f} ms")
+    assert kernel_ms > 10.0
+    assert abs(s.device_ms() - kernel_ms) <= 0.10 * kernel_ms
+
+
+# waits the sync-debug mode does not count: a synchronise of the device
+# around a graph's capture, and of an event that had not completed
+NOT_WARNED = ("wait/capture", "wait/pipeline_scalars", "wait/image_staging")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sensor", ["rgbd", "dual"])
+def test_cuda_wait_spans_are_the_host_syncs(sensor):
+    """40 orbit frames through `System`, fed host arrays as the drivers and
+    the benchmark feed it, mapping and loop stage on (a vocabulary trained
+    online from the first keyframes): `rgbd` the rig's camera 0 on the
+    stepwise route, `dual` the pipelined rig.  Then the frames in reverse,
+    each under `set_sync_debug_mode("warn")` with the tracer on.  Every
+    warning falls inside a `wait/*` span, and a frame has at least as many
+    warnings as `wait/*` spans of waits the mode counts and at most as many
+    as all its `wait/*` spans; a frame that differs is named with its sites."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import warnings
+
+    from multi_orb_slam_tpu_torch import system
+    from multi_orb_slam_tpu_torch.loop import loop_closing
+    from multi_orb_slam_tpu_torch.utils import metrics
+
+    cfg, calib, frames = _orbit(40)
+    cfg = cfg._replace(max_frames_kf=10)     # a keyframe in the reversed frames too
+    n = 2 if sensor == "dual" else 1
+    if n == 1:
+        cfg = cfg._replace(n_cams=1)
+        calib = calib._replace(K=calib.K[:1], dist=calib.dist[:1], T_rc=calib.T_rc[:1])
+    frames = [[x for c in range(n) for x in (g[c].cpu().numpy(), d[c].cpu().numpy())]
+              for g, d in frames]
+    slam = system.System(sensor=system.Sensor.DUAL_RGBD if n == 2 else system.Sensor.RGBD,
+                         calib=calib, cfg=cfg, pipelined=n == 2, pipeline_depth=3 if n == 2 else 1)
+    slam.loop_closer = loop_closing.LoopCloser(slam.calib, cfg, vocab_min_descs=1500)
+    for ims in frames:
+        slam.track_rgbd(*ims)
+    sites, problems, waits_seen = [], [], 0
+
+    def hook(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" in str(message):
+            waits = [s.name for s in getattr(metrics._local, "stack", []) if s.name.startswith("wait/")]
+            sites.append((waits[-1] if waits else None, f"{filename}:{lineno}"))
+
+    metrics.clear()
+    kf0 = slam.metrics.counters["keyframes_inserted"]
+    with metrics.tracing(), warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = hook
+        for ims in frames[::-1]:
+            sites.clear()
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                slam.track_rgbd(*ims)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            root = [s for s in metrics.spans() if s.name == "system/track_rgbd"][-1]
+            waits = [s.name for s in metrics.spans()
+                     if s.name.startswith("wait/") and s.frame == root.frame]
+            counted = [w for w in waits if w not in NOT_WARNED]
+            waits_seen += len(waits)
+            if any(w is None for w, _ in sites) or not len(counted) <= len(sites) <= len(waits):
+                problems.append({"frame": root.frame, "waits": waits, "syncs": sites[:]})
+    metrics.clear()
+    keyframes = slam.metrics.counters["keyframes_inserted"] - kf0
+    print(f"orbit-40 {sensor}, reversed: {waits_seen / len(frames):.2f} waits a frame, "
+          f"{keyframes} keyframes, vocabulary {slam.loop_closer.voc is not None}")
+    assert slam.get_tracking_state() == 1
+    assert slam.loop_closer.voc is not None and keyframes >= 1
+    assert not problems, problems

@@ -86,9 +86,10 @@ class TestSystemFacade:
     def test_track_and_save_trajectories(self, tmp_path):
         sys_, cfg, calib = make_system()
         seq = _sequence(10)
-        for i, (grays, depths) in enumerate(zip(seq.grays, seq.depths)):
-            Tcw = sys_.track_rgbd(grays[0], depths[0], timestamp=seq.timestamps[i])
-            assert isinstance(Tcw, np.ndarray) and Tcw.shape == (4, 4)
+        with t_metrics.tracing():       # the stage timers below read the tracer's spans
+            for i, (grays, depths) in enumerate(zip(seq.grays, seq.depths)):
+                Tcw = sys_.track_rgbd(grays[0], depths[0], timestamp=seq.timestamps[i])
+                assert isinstance(Tcw, np.ndarray) and Tcw.shape == (4, 4)
         assert sys_.get_tracking_state() == OK
         assert sys_.get_tracked_map_points() > 50
 
@@ -107,7 +108,7 @@ class TestSystemFacade:
         assert res["compared_pose_pairs"] == 10
         assert res["absolute_translational_error.rmse"] < 1e-5
         report = sys_.timing_report()
-        assert "track_frame" in report and "mapping_stage" in report
+        assert "system/track_rgbd" in report and "mapping/stage" in report
         sys_.shutdown()
 
     def test_localization_mode(self):
@@ -283,9 +284,10 @@ class TestConfigIO:
 
 def test_metrics_spans_and_counters():
     m = t_metrics.Metrics()
-    for _ in range(3):
-        with m.span("stage"):
-            pass
+    with t_metrics.tracing():
+        for _ in range(3):
+            with m.span("stage"):
+                pass
     m.count("frames", 2)
     s = m.summary()
     assert s["stage"]["n"] == 3 and s["frames"] == 2 and "stage" in m.report()
@@ -328,12 +330,14 @@ def blackout_runs(tmp_path_factory):
     blank, zero = np.full_like(seq.grays[0], 100.0), np.zeros_like(seq.depths[0])
     reloc0 = dict(t_reloc.STATS)
     rows = []
-    for i, (g, d) in enumerate(zip(seq.grays, seq.depths)):
-        if i in BLACKOUT:
-            g, d = blank, zero
-        Tj = js.track_rgbd(g[0], d[0], g[1], d[1], timestamp=seq.timestamps[i])
-        Tt = ts.track_rgbd(g[0], d[0], g[1], d[1], timestamp=seq.timestamps[i])
-        rows.append((js.get_tracking_state(), ts.get_tracking_state(), _centre(Tj), _centre(Tt)))
+    with t_metrics.tracing():          # `timing_report` reads the tracer's spans
+        for i, (g, d) in enumerate(zip(seq.grays, seq.depths)):
+            if i in BLACKOUT:
+                g, d = blank, zero
+            Tj = js.track_rgbd(g[0], d[0], g[1], d[1], timestamp=seq.timestamps[i])
+            Tt = ts.track_rgbd(g[0], d[0], g[1], d[1], timestamp=seq.timestamps[i])
+            rows.append((js.get_tracking_state(), ts.get_tracking_state(), _centre(Tj),
+                         _centre(Tt)))
     reloc = {k: t_reloc.STATS[k] - reloc0[k] for k in reloc0}
     return dict(js=js, ts=ts, rows=rows, seq=seq, reloc=reloc,
                 dir=tmp_path_factory.mktemp("ckpt"))
